@@ -4,10 +4,11 @@ The JAX package ``mvdetr_tpu`` stays the reference; this package mirrors its
 module paths so each counterpart is easy to find, imports ``torch``, numpy and
 scipy only, and never imports JAX or anything of ``mvdetr_tpu``.
 
-This slice ports the serving path: a multiview frame set goes in and
-ground-plane detections come out (``train.trainer.eval_step``). Its one TPU
-kernel, the windowed deformable-attention forward, is the hand-written CUDA
-kernel in ``csrc/msda_windowed_fwd.cu``.
+Ported so far: serving (a multiview frame set in, ground-plane detections
+out, ``train.trainer.eval_step``) and training (``train.trainer.train_step``:
+loss, backward, two-group Adam + OneCycle). Their TPU kernels are
+hand-written CUDA kernels in ``csrc/``: the windowed deformable-attention
+forward and backward, and the backward of the perspective warp.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"``; they raise when no card is present.

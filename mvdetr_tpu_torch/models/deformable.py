@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mvdetr_tpu_torch.models.layers import LayerNorm, Linear
+from mvdetr_tpu_torch.models.layers import Dropout, LayerNorm, Linear
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 
 _MODES_LATER = "the 'gather' and 'warped' attention modes wait for ROADMAP item A8"
@@ -93,37 +93,43 @@ class MSDeformAttn(nn.Module):
 
 class DeformableEncoderLayer(nn.Module):
     """Post-norm self-attention + FFN with the positional embedding added to
-    the query only (`deformable_transformer.py:55-85`). Inference only: the
-    dropouts of the JAX module are identities at ``train=False``."""
+    the query only (`deformable_transformer.py:55-85`), with the JAX module's
+    three dropouts (`mvdetr_tpu/models/deformable.py:233,250-255`): on the
+    attention output, after the FFN's ReLU and on the FFN output. They act in
+    training mode only."""
 
-    def __init__(self, d_model: int = 128, d_ffn: int = 512, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, dtype: torch.dtype = torch.float32, mode: str = "windowed",
+    def __init__(self, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1, n_levels: int = 4,
+                 n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32, mode: str = "windowed",
                  radius: int = 4, generator=None):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype, mode, radius, generator)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Linear(d_model, d_ffn, dtype, generator=generator)
+        self.dropout2 = Dropout(dropout)
         self.linear2 = Linear(d_ffn, d_model, dtype, generator=generator)
+        self.dropout3 = Dropout(dropout)
         self.norm2 = LayerNorm(d_model, dtype)
 
     def forward(self, src, pos, spatial_shape):
         q = src if pos is None else src + pos
         attn, clip = self.self_attn(q, src, spatial_shape)
-        src = self.norm1(src + attn)
-        y = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + y), clip
+        src = self.norm1(src + self.dropout1(attn))
+        y = self.linear2(self.dropout2(F.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout3(y)), clip
 
 
 class DeformableEncoder(nn.Module):
     """``num_layers`` encoder layers; returns the tokens and the per-layer
     ``offset_clip_fraction`` list (the JAX module sows it instead)."""
 
-    def __init__(self, num_layers: int = 3, d_model: int = 128, d_ffn: int = 512, n_levels: int = 4,
-                 n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32,
+    def __init__(self, num_layers: int = 3, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1,
+                 n_levels: int = 4, n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32,
                  mode: str = "windowed", radius: int = 4, generator=None):
         super().__init__()
         self.layers = nn.ModuleList([
-            DeformableEncoderLayer(d_model, d_ffn, n_levels, n_heads, n_points, dtype, mode, radius, generator)
+            DeformableEncoderLayer(d_model, d_ffn, dropout, n_levels, n_heads, n_points, dtype, mode, radius,
+                                   generator)
             for _ in range(num_layers)
         ])
 

@@ -77,11 +77,17 @@ class Linear(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """Inference-mode ``nn.BatchNorm`` (running statistics, eps 1e-5) on NCHW.
+    """``nn.BatchNorm`` of Flax (momentum 0.9, eps 1e-5) on NCHW.
 
-    Buffers are named as PyTorch's ``BatchNorm2d`` names them, including
-    ``num_batches_tracked``, so reference checkpoints load as they are.
-    Batch statistics (training) come with the training slice.
+    In eval mode it normalises with the running statistics. In training mode
+    it follows Flax, not ``F.batch_norm``: the statistics are taken in f32
+    over (N, H, W) with the one-pass variance ``max(0, E[x^2] - E[x]^2)``
+    (``use_fast_variance``), the normalisation runs in f32 and is rounded once
+    to the compute dtype, and the running statistics move as
+    ``0.9 * running + 0.1 * batch`` with the *biased* batch variance
+    (`mvdetr_tpu/models/resnet.py:43-44,90`); ``num_batches_tracked`` counts
+    the updates. Buffers are named as PyTorch's ``BatchNorm2d`` names them, so
+    reference checkpoints load as they are.
     """
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
@@ -94,9 +100,59 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        x32 = x.float()
+        if self.training:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * var)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout`` of Flax with masks from an explicit generator.
+
+    In training mode (and at a rate above 0) each element, or with
+    ``channels=True`` each whole channel of an NCHW map (Flax
+    ``broadcast_dims=(1, 2)`` on NHWC, PyTorch's Dropout2d), is kept with
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``. The mask is drawn
+    from ``self.generator``, which the train step sets
+    (:func:`set_dropout_generator`); a generator on the input's device is
+    required, so a run is reproducible from its seed. JAX's random bits
+    cannot be matched, so the parity tests run at rate 0.
+    """
+
+    def __init__(self, p: float, channels: bool = False):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1], got {p}")
+        self.p, self.channels = float(p), channels
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise ValueError("Dropout in training mode needs a generator: set it with set_dropout_generator "
+                             "(train_step does)")
+        shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2) if self.channels else x.shape
+        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Point every :class:`Dropout` under ``module`` at ``generator``."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class LayerNorm(nn.Module):

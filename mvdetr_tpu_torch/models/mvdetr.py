@@ -1,14 +1,16 @@
 """MVDeTr, the multiview detector, port of ``mvdetr_tpu/models/mvdetr.py``.
 
-Pipeline (inference):
+Pipeline:
 
 1. uint8 frames are ImageNet-normalised on the device, in the compute dtype;
-2. the dilated ResNet-18 trunk runs over all B*N views, then a 1x1
-   bottleneck;
+2. the dilated ResNet-18 trunk runs over all B*N views (in training its
+   BatchNorms take statistics over the B*N views), then a 1x1 bottleneck and
+   Dropout2d (rate ``dropout``, 0 by default as in JAX);
 3. per-view heads (center heatmap, sub-cell offset, box size);
 4. the per-view features are warped onto the reduced BEV grid by the
    homography ``proj @ inv(affine) @ diag(img_reduce)`` (`mvdetr.py:170-175`);
-5. the shadow transformer fuses the cameras;
+5. the shadow transformer fuses the cameras (encoder dropout
+   ``encoder_dropout``, 0.1 as in JAX);
 6. BEV heads: occupancy heatmap and offset.
 
 The public layout is the JAX package's: NHWC images ``[B, N, H, W, 3]`` and
@@ -31,7 +33,7 @@ import torch.nn as nn
 
 from mvdetr_tpu_torch.device import resolve_device
 from mvdetr_tpu_torch.models.heads import HEATMAP_BIAS_INIT, OutputHead
-from mvdetr_tpu_torch.models.layers import Conv2d
+from mvdetr_tpu_torch.models.layers import Conv2d, Dropout
 from mvdetr_tpu_torch.models.resnet import resnet_features
 from mvdetr_tpu_torch.models.world_feat import build_world_feat
 from mvdetr_tpu_torch.ops.warp import invert_3x3, perspective_warp
@@ -41,7 +43,10 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 class MVDeTr(nn.Module):
-    """Inference-only in this slice: ``forward`` raises in training mode.
+    """``model.train()`` turns on batch statistics and dropout, whose masks
+    come from the generator that ``train_step`` sets
+    (:func:`~mvdetr_tpu_torch.models.layers.set_dropout_generator`);
+    ``model.eval()`` serves.
 
     Submodule names are the reference checkpoint's (``base``,
     ``bottleneck``, ``img_heatmap``, ``img_offset``, ``img_wh``,
@@ -53,7 +58,8 @@ class MVDeTr(nn.Module):
                  world_feat_arch: str = "deform_trans", bottleneck_dim: int = 128, outfeat_dim: int = 0,
                  reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                  compute_dtype: Optional[torch.dtype] = None, attn_mode: str = "auto", attn_radius: int = 4,
-                 warp_convention: str = "center", generator: Optional[torch.Generator] = None):
+                 warp_convention: str = "center", dropout: float = 0.0, encoder_dropout: float = 0.1,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if arch != "resnet18":
             raise NotImplementedError(f"backbone {arch!r} waits for ROADMAP item A8; this slice ports resnet18")
@@ -75,13 +81,15 @@ class MVDeTr(nn.Module):
         if bottleneck_dim:
             self.bottleneck = nn.Sequential(Conv2d(512, bottleneck_dim, 1, dtype=dt, generator=g))
             feat_dim = bottleneck_dim
+        # Dropout2d after the bottleneck: whole channels (`mvdetr.py:161`)
+        self.bottleneck_dropout = Dropout(dropout, channels=True)
         self.img_heatmap = OutputHead(feat_dim, 1, outfeat_dim, HEATMAP_BIAS_INIT, dt, g)
         self.img_offset = OutputHead(feat_dim, 2, outfeat_dim, dtype=dt, generator=g)
         self.img_wh = OutputHead(feat_dim, 2, outfeat_dim, dtype=dt, generator=g)
         self.world_feat = build_world_feat(world_feat_arch, num_cam, self.Rworld_shape,
                                            base_dim=bottleneck_dim or 512, reference_points=reference_points,
                                            n_points=n_points, dtype=dt, attn_mode=attn_mode,
-                                           attn_radius=attn_radius, generator=g)
+                                           attn_radius=attn_radius, dropout=encoder_dropout, generator=g)
         wdim = bottleneck_dim or 512
         self.world_heatmap = OutputHead(wdim, 1, outfeat_dim, HEATMAP_BIAS_INIT, dt, g)
         self.world_offset = OutputHead(wdim, 2, outfeat_dim, dtype=dt, generator=g)
@@ -92,8 +100,8 @@ class MVDeTr(nn.Module):
     def from_rig(cls, rig, world_reduce: int = 4, img_reduce: int = 12, arch: str = "resnet18",
                  world_feat_arch: str = "deform_trans", bottleneck_dim: int = 128, outfeat_dim: int = 0,
                  n_points: int = 4, compute_dtype: Optional[torch.dtype] = None, attn_mode: str = "auto",
-                 attn_radius: int = 4, warp_convention: str = "center", device="cuda",
-                 seed: int = 0) -> "MVDeTr":
+                 attn_radius: int = 4, warp_convention: str = "center", dropout: float = 0.0,
+                 encoder_dropout: float = 0.1, device="cuda", seed: int = 0) -> "MVDeTr":
         """Build from a :class:`~mvdetr_tpu_torch.geometry.CameraRig`, deriving
         the projection matrices and the reference map (`mvdetr.py:82-95`).
 
@@ -119,18 +127,38 @@ class MVDeTr(nn.Module):
             proj_mats=rig.proj_mats(world_reduce=world_reduce).astype(np.float32), arch=arch,
             world_feat_arch=world_feat_arch, bottleneck_dim=bottleneck_dim, outfeat_dim=outfeat_dim,
             reference_points=ref, n_points=n_points, compute_dtype=compute_dtype, attn_mode=attn_mode,
-            attn_radius=attn_radius, warp_convention=warp_convention,
-            generator=torch.Generator().manual_seed(seed),
+            attn_radius=attn_radius, warp_convention=warp_convention, dropout=dropout,
+            encoder_dropout=encoder_dropout, generator=torch.Generator().manual_seed(seed),
         )
         return model.to(dev).eval()
+
+    def warp_mats(self, affine_mats: torch.Tensor, feat_hw) -> torch.Tensor:
+        """``[B*N, 3, 3]`` homographies from the feature grid of size
+        ``feat_hw`` to the BEV cells: feature px -> image px (x img_reduce) ->
+        un-augment -> BEV (`mvdetr.py:170-175`), with kornia's resampling
+        folded in under ``warp_convention="kornia"`` (`mvdetr.py:176-189`)."""
+        n = self.num_cam
+        b = affine_mats.shape[0]
+        dev = affine_mats.device
+        proj = self.proj_mats.to(dev).repeat(b, 1, 1)
+        inv_aff = invert_3x3(affine_mats.reshape(b * n, 3, 3).to(torch.float32))
+        reduce_mat = torch.diag(torch.tensor([self.img_reduce, self.img_reduce, 1.0], device=dev))
+        full_proj = proj @ inv_aff @ reduce_mat
+        if self.warp_convention == "kornia":
+            # x' = x*W/(W-1) - 0.5 on the source side
+            hf, wf = feat_hw
+            inv_s = torch.tensor(
+                [[(wf - 1) / wf, 0.0, 0.5 * (wf - 1) / wf],
+                 [0.0, (hf - 1) / hf, 0.5 * (hf - 1) / hf],
+                 [0.0, 0.0, 1.0]], dtype=torch.float32, device=dev)
+            full_proj = full_proj @ inv_s
+        return full_proj
 
     def forward(self, imgs: torch.Tensor, affine_mats: torch.Tensor):
         """``imgs [B, N, H, W, 3]`` (uint8, or float already normalised),
         ``affine_mats [B, N, 3, 3]`` augmentation affines in full-resolution
         pixels -> ``(((world_heatmap, world_offset), (imgs_heatmap,
         imgs_offset, imgs_wh)), offset_clip_fraction per encoder layer)``."""
-        if self.training:
-            raise NotImplementedError("MVDeTr training (batch statistics, dropout) comes with the training slice")
         b, n, h, w, _ = imgs.shape
         if n != self.num_cam:
             raise ValueError(f"expected {self.num_cam} cameras, got {n}")
@@ -144,26 +172,12 @@ class MVDeTr(nn.Module):
 
         feat = self.base(x)
         if self.bottleneck is not None:
-            feat = self.bottleneck(feat)
+            feat = self.bottleneck_dropout(self.bottleneck(feat))
         imgs_heatmap = self.img_heatmap(feat)
         imgs_offset = self.img_offset(feat)
         imgs_wh = self.img_wh(feat)
 
-        # feature grid -> image px (x img_reduce) -> un-augment -> BEV cell
-        proj = self.proj_mats.repeat(b, 1, 1)
-        inv_aff = invert_3x3(affine_mats.reshape(b * n, 3, 3).to(device=x.device, dtype=torch.float32))
-        reduce_mat = torch.diag(torch.tensor([self.img_reduce, self.img_reduce, 1.0], device=x.device))
-        full_proj = proj @ inv_aff @ reduce_mat
-        hf, wf = feat.shape[2], feat.shape[3]
-        if self.warp_convention == "kornia":
-            # kornia's align_corners=False resampling folded into the homography
-            # (`mvdetr.py:176-189`): x' = x*W/(W-1) - 0.5 on the source side
-            inv_s = torch.tensor(
-                [[(wf - 1) / wf, 0.0, 0.5 * (wf - 1) / wf],
-                 [0.0, (hf - 1) / hf, 0.5 * (hf - 1) / hf],
-                 [0.0, 0.0, 1.0]], dtype=torch.float32, device=x.device)
-            full_proj = full_proj @ inv_s
-
+        full_proj = self.warp_mats(affine_mats.to(x.device), feat.shape[2:4])
         world_in = perspective_warp(feat.permute(0, 2, 3, 1), full_proj, self.Rworld_shape)
         world_in = world_in.reshape(b, n, self.Rworld_shape[0], self.Rworld_shape[1], -1)
         world_feat, clips = self.world_feat(world_in)

@@ -5,7 +5,10 @@ With ``replace_stride_with_dilation=(False, True, True)`` the output stride is
 (and unlike torchvision's block), only ``conv1`` of a block is dilated: the
 first block of a stage uses the previous stage's dilation, the later blocks
 the stage's own, and ``conv2`` always has dilation 1. The stem max-pool is
-3/2/pad 1, BatchNorm runs on running statistics (eps 1e-5).
+3/2/pad 1. Training mode reaches every BatchNorm through ``Module.train()``:
+in training they take batch statistics over the flattened B*N views and
+update their running statistics, as the Flax trunk does with ``train=True``;
+in eval mode they use the running statistics (eps 1e-5).
 
 The trunk is ``Sequential(conv1, bn1, relu, maxpool, layer1..layer4)``, the
 layout of ``nn.Sequential(*resnet18.children())[:-2]``, so its state_dict

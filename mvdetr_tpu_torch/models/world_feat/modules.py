@@ -62,8 +62,8 @@ class DeformTransWorldFeat(nn.Module):
     """
 
     def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128,
-                 hidden_dim: int = 128, nhead: int = 8, dim_feedforward: int = 512, n_points: int = 4,
-                 stride: int = 2, reference_points: Optional[np.ndarray] = None,
+                 hidden_dim: int = 128, nhead: int = 8, dim_feedforward: int = 512, dropout: float = 0.1,
+                 n_points: int = 4, stride: int = 2, reference_points: Optional[np.ndarray] = None,
                  dtype: torch.dtype = torch.float32, attn_mode: str = "auto", attn_radius: int = 4,
                  generator=None):
         super().__init__()
@@ -79,7 +79,7 @@ class DeformTransWorldFeat(nn.Module):
         self.lvl_embedding = nn.Parameter(torch.empty(num_cam, hidden_dim))
         with torch.no_grad():
             nn.init.normal_(self.lvl_embedding, 0.0, 1.0, generator=generator)
-        self.encoder = DeformableEncoder(3, hidden_dim, dim_feedforward, num_cam, nhead, n_points, dtype,
+        self.encoder = DeformableEncoder(3, hidden_dim, dim_feedforward, dropout, num_cam, nhead, n_points, dtype,
                                          self.mode, attn_radius, generator)
         self.merge_linear = nn.Sequential(
             Conv2d(num_cam * hidden_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
@@ -115,12 +115,14 @@ class DeformTransWorldFeat(nn.Module):
 def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
                      reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                      dtype: torch.dtype = torch.float32, attn_mode: str = "auto", attn_radius: int = 4,
-                     generator=None) -> nn.Module:
-    """Variant dispatch; ``deform_trans`` only in this slice."""
+                     dropout: float = 0.1, generator=None) -> nn.Module:
+    """Variant dispatch; ``deform_trans`` only in this slice. ``dropout`` is
+    the encoder's rate: 0.1 as in the JAX module (`modules.py:125`), which
+    does not expose it."""
     if arch == "deform_trans":
-        return DeformTransWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, n_points=n_points,
-                                    reference_points=reference_points, dtype=dtype, attn_mode=attn_mode,
-                                    attn_radius=attn_radius, generator=generator)
+        return DeformTransWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
+                                    n_points=n_points, reference_points=reference_points, dtype=dtype,
+                                    attn_mode=attn_mode, attn_radius=attn_radius, generator=generator)
     if arch in ("conv", "trans", "aio", "deform_conv"):
         raise NotImplementedError(f"world_feat {arch!r} waits for ROADMAP item A8; this slice ports deform_trans")
     raise ValueError(f"unknown world_feat arch: {arch}")

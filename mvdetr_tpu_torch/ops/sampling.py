@@ -1,11 +1,13 @@
-"""Bilinear sampling, port of ``mvdetr_tpu/ops/sampling.py::bilinear_patch_sample``.
+"""Bilinear sampling and its adjoint, port of ``mvdetr_tpu/ops/sampling.py``
+(``bilinear_patch_sample``, ``bilinear_scatter_matmul``).
 
 Convention: integer pixel centers. Pixel ``i`` of an axis of size ``W`` is
 centered at coordinate ``i``; the support is ``[-0.5, W - 0.5]``. Each of the
 four corners is masked on its own, so taps outside the image contribute zero.
 
-Forward only in this slice: the warp's backward (TPU kernel
-``ops/pallas/warp_bwd.py::_kernel``) comes with the training slice.
+:func:`bilinear_scatter_matmul` is the plain version of the warp backward
+(TPU kernel B3, ``mvdetr_tpu/ops/pallas/warp_bwd.py::_kernel``); its CUDA
+kernel is ``csrc/warp_bwd.cu`` behind :func:`mvdetr_tpu_torch.ops.warp.warp_bwd`.
 """
 
 from __future__ import annotations
@@ -57,3 +59,49 @@ def bilinear_patch_sample(value: torch.Tensor, x: torch.Tensor, y: torch.Tensor)
     patches = flat.index_select(0, idx).reshape(b, q, 4, c)
     out = torch.einsum("bqk,bqkc->bqc", weights.float(), patches.float())
     return out.to(dt)
+
+
+def bilinear_scatter_matmul(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor, h: int, w: int,
+                            chunk: int = 4096) -> torch.Tensor:
+    """Adjoint of bilinear sampling with respect to the sampled map:
+    ``g [B, Q, C]`` cotangents of samples taken at ``x/y [B, Q]`` ->
+    ``grad [B, h, w, C]`` in ``g.dtype``.
+
+    ``grad[b, i, j, c] = sum_q R[q, i] * C[q, j] * g[b, q, c]`` with ``R``
+    ``[Q, h]`` and ``C`` ``[Q, w]`` the separable bilinear one-hots of
+    ``floor(y)`` and ``floor(x)``, built from f32 coordinates; taps outside the
+    map match no index and vanish. The roundings are the JAX function's:
+    ``R`` is cast to ``g.dtype`` and the ``R (x) g`` product taken in
+    ``g.dtype``; ``C`` is cast to ``g.dtype`` and the contraction over queries
+    accumulates in f32 (bf16 products are exact in f32), chunk by chunk; the
+    result is cast to ``g.dtype`` once.
+    """
+    b, qn, c = g.shape
+    dt = g.dtype
+    chunk = min(chunk, qn)
+    nchunk = -(-qn // chunk)
+    qp = nchunk * chunk
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    if qp != qn:
+        g = torch.nn.functional.pad(g, (0, 0, 0, qp - qn))
+        # padded queries sample far outside the map: zero weights
+        x = torch.nn.functional.pad(x, (0, qp - qn), value=-1e6)
+        y = torch.nn.functional.pad(y, (0, qp - qn), value=-1e6)
+    rows = torch.arange(h, dtype=torch.float32, device=g.device)
+    cols = torch.arange(w, dtype=torch.float32, device=g.device)
+    acc = torch.zeros((b, w, h * c), dtype=torch.float32, device=g.device)
+    for i in range(nchunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        xx, yy, gg = x[:, sl], y[:, sl], g[:, sl]
+        x0 = torch.floor(xx)
+        y0 = torch.floor(yy)
+        wx1 = xx - x0
+        wy1 = yy - y0
+        r1h = ((1.0 - wy1)[..., None] * (rows == y0[..., None])
+               + wy1[..., None] * (rows == (y0 + 1.0)[..., None]))  # [B, CH, h]
+        c1h = ((1.0 - wx1)[..., None] * (cols == x0[..., None])
+               + wx1[..., None] * (cols == (x0 + 1.0)[..., None]))  # [B, CH, w]
+        rg = r1h.to(dt)[..., None] * gg[:, :, None, :]  # [B, CH, h, C] in g.dtype
+        acc += torch.bmm(c1h.to(dt).float().transpose(1, 2), rg.reshape(b, chunk, h * c).float())
+    return acc.reshape(b, w, h, c).transpose(1, 2).to(dt)

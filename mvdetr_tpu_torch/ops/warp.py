@@ -4,14 +4,30 @@
 samples the source at the inverse-mapped coordinate (bilinear, zero outside).
 The JAX forward is a plain XLA gather with no Pallas kernel, so a plain torch
 gather (:func:`~mvdetr_tpu_torch.ops.sampling.bilinear_patch_sample`) is its
-counterpart here. Forward only in this slice.
+counterpart here.
+
+The backward (``_PatchSampleFn``, after ``_patch_sample_nocoordgrad``) is
+:func:`warp_scatter_accumulate`: on a CUDA tensor the hand-written kernel
+``csrc/warp_bwd.cu`` (:func:`warp_bwd`, replaces the TPU kernel
+``mvdetr_tpu/ops/pallas/warp_bwd.py::_kernel``), on a CPU tensor the plain
+:func:`~mvdetr_tpu_torch.ops.sampling.bilinear_scatter_matmul`. Without it,
+autograd would differentiate ``index_select`` with ``index_add_``, a
+float-atomic scatter on the card whose result changes from run to run. The
+sampling coordinates get no gradient: they come from calibration and the
+augmentation affine, never from parameters.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from mvdetr_tpu_torch.ops.sampling import bilinear_patch_sample
+from mvdetr_tpu_torch.ops import kernel_build
+from mvdetr_tpu_torch.ops.sampling import bilinear_patch_sample, bilinear_scatter_matmul
+
+KERNEL_NAME = "warp_bwd"
 
 
 def invert_3x3(m: torch.Tensor) -> torch.Tensor:
@@ -38,7 +54,7 @@ def invert_3x3(m: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
-def _warp_coords(mats: torch.Tensor, out_shape):
+def warp_coords(mats: torch.Tensor, out_shape):
     """Source pixel coords sampled by each destination cell: two ``[B, Ho*Wo]`` tensors."""
     ho, wo = out_shape
     inv = invert_3x3(mats.to(torch.float32))  # dst -> src
@@ -57,10 +73,105 @@ def _warp_coords(mats: torch.Tensor, out_shape):
     return src[..., 0] / z, src[..., 1] / z
 
 
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the warp-backward kernel's shared library."""
+    lib = ctypes.CDLL(str(kernel_build.build(KERNEL_NAME)))
+    lib.warp_bwd_keys_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.warp_bwd_keys_launch.restype = ctypes.c_int
+    lib.warp_bwd_gather_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.warp_bwd_gather_launch.restype = ctypes.c_int
+    lib.warp_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.warp_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def warp_bwd(g: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Launch the B3 kernel: ``g [B, Q, C]`` (f32 or bf16) and f32
+    coordinates ``sx/sy [B, Q]``, contiguous on one CUDA device ->
+    ``grad [B, h, w, C]`` in ``g.dtype``.
+
+    The destination keys are computed by the kernel's first pass and ordered
+    with a stable ``torch.sort`` (index plumbing); the second pass sums each
+    destination cell's taps in query order. Raises on any input the kernel
+    does not take; never computes on another path. Adds one to
+    ``warp_bwd.launches`` per launch."""
+    if g.device.type != "cuda":
+        raise ValueError(f"warp_bwd runs on a CUDA device only, got g on {g.device}")
+    if g.dtype not in _DTYPE_CODES:
+        raise ValueError(f"warp_bwd takes f32 or bf16 cotangents, got {g.dtype}")
+    if g.dim() != 3 or tuple(sx.shape) != tuple(g.shape[:2]) or tuple(sy.shape) != tuple(g.shape[:2]):
+        raise ValueError(f"warp_bwd: g {tuple(g.shape)} must be [B, Q, C] and sx/sy [B, Q], got "
+                         f"{tuple(sx.shape)}, {tuple(sy.shape)}")
+    for name, t in (("sx", sx), ("sy", sy)):
+        if t.device != g.device or t.dtype != torch.float32:
+            raise ValueError(f"warp_bwd: {name} must be f32 on {g.device}, got {t.dtype} on {t.device}")
+    if not (g.is_contiguous() and sx.is_contiguous() and sy.is_contiguous()):
+        raise ValueError("warp_bwd: inputs must be contiguous")
+    b, q, c = g.shape
+    if b * h * w >= 2**31 - 1:
+        raise ValueError(f"warp_bwd: B*h*w = {b * h * w} does not fit the kernel's int32 keys")
+    out = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    keys = torch.empty(4 * b * q, dtype=torch.int32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.warp_bwd_keys_launch(sx.data_ptr(), sy.data_ptr(), keys.data_ptr(), b, q, h, w, stream)
+        if err == 0:
+            sorted_keys, order = torch.sort(keys, stable=True)
+            err = lib.warp_bwd_gather_launch(
+                g.data_ptr(), sx.data_ptr(), sy.data_ptr(), sorted_keys.data_ptr(), order.data_ptr(),
+                out.data_ptr(), b, q, h, w, c, _DTYPE_CODES[g.dtype], stream,
+            )
+    if err != 0:
+        msg = lib.warp_bwd_error_string(err).decode()
+        raise RuntimeError(f"warp_bwd launch failed: {msg} (cudaError {err})")
+    warp_bwd.launches += 1
+    return out
+
+
+warp_bwd.launches = 0
+
+
+def warp_scatter_accumulate(g: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Adjoint-of-sampling dispatch (`mvdetr_tpu/ops/warp.py:93-117`): a CUDA
+    tensor goes to the B3 kernel, a CPU tensor to the plain version, with no
+    fallback between them."""
+    if g.device.type == "cuda":
+        return warp_bwd(g.contiguous(), sx.to(torch.float32).contiguous(), sy.to(torch.float32).contiguous(), h, w)
+    if g.device.type == "cpu":
+        return bilinear_scatter_matmul(g, sx, sy, h, w)
+    raise ValueError(f"warp_scatter_accumulate: unsupported device {g.device}")
+
+
+class _PatchSampleFn(torch.autograd.Function):
+    """:func:`bilinear_patch_sample` whose backward is
+    :func:`warp_scatter_accumulate` (`mvdetr_tpu/ops/warp.py:70-90`); the
+    coordinates get no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, sx, sy):
+        ctx.hw = feats.shape[1:3]
+        ctx.save_for_backward(sx, sy)
+        return bilinear_patch_sample(feats, sx, sy)
+
+    @staticmethod
+    def backward(ctx, g):
+        sx, sy = ctx.saved_tensors
+        return warp_scatter_accumulate(g, sx, sy, *ctx.hw), None, None
+
+
 def perspective_warp(feats: torch.Tensor, mats: torch.Tensor, out_shape) -> torch.Tensor:
     """Warp ``feats [B, H, W, C]`` by per-sample homographies ``mats [B, 3, 3]``
-    to ``[B, Ho, Wo, C]``, zeros outside the source support."""
+    to ``[B, Ho, Wo, C]``, zeros outside the source support. Differentiable
+    with respect to ``feats`` (deterministic backward, B3 on the card);
+    ``mats`` get no gradient."""
     ho, wo = out_shape
     b, _, _, c = feats.shape
-    sx, sy = _warp_coords(mats, out_shape)
-    return bilinear_patch_sample(feats, sx, sy).reshape(b, ho, wo, c)
+    sx, sy = warp_coords(mats.detach(), out_shape)
+    return _PatchSampleFn.apply(feats, sx, sy).reshape(b, ho, wo, c)

@@ -5,6 +5,9 @@ import numpy as np
 import pytest
 import torch
 
+# training batches are built as chip_smoke.py builds them (the port's build_targets)
+from chip_smoke import train_batch as synthetic_train_batch  # noqa: F401
+
 
 @pytest.fixture
 def cuda_device():
@@ -23,3 +26,4 @@ def windowed_inputs(rng, b, l, h, w, m, d, p, c, lo, hi):
     wgt = rng.uniform(0, 1, (b, c, h, w, m, l, p)).astype(np.float32)
     wgt /= wgt.sum(axis=(-1, -2), keepdims=True)
     return value, off, wgt
+

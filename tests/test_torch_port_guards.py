@@ -48,8 +48,9 @@ def test_package_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
-    assert "mvdetr_tpu_torch.ops.msda_windowed" in report["imported"]
-    assert "mvdetr_tpu_torch.train.trainer" in report["imported"]
+    for name in ("ops.msda_windowed", "ops.warp", "ops.sampling", "losses", "data.targets", "train.trainer",
+                 "train.optim", "train.state", "models.layers"):
+        assert f"mvdetr_tpu_torch.{name}" in report["imported"], name
 
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for path in sources:
@@ -80,26 +81,31 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 
 
 def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp_path):
-    """No nvcc, or an nvcc that fails: building (and so the first launch)
-    raises; nothing substitutes the plain version."""
-    from mvdetr_tpu_torch.ops import kernel_build
-    from mvdetr_tpu_torch.ops.msda_windowed import KERNEL_NAME, load_library
+    """No nvcc, or an nvcc that fails: building (and so the first launch of
+    each of B1, B2 and B3) raises; nothing substitutes the plain version."""
+    from mvdetr_tpu_torch.ops import kernel_build, msda_windowed, warp
 
+    loaders = {msda_windowed.KERNEL_NAME: msda_windowed.load_library,
+               msda_windowed.BWD_KERNEL_NAME: msda_windowed.load_bwd_library, warp.KERNEL_NAME: warp.load_library}
     monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernel_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path / "bin"))
-    load_library.cache_clear()
+    for load in loaders.values():
+        load.cache_clear()
     try:
-        with pytest.raises(RuntimeError, match="nvcc not found"):
-            load_library()
+        for load in loaders.values():
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                load()
         fake = tmp_path / "bin" / "nvcc"
         fake.parent.mkdir()
         fake.write_text("#!/bin/sh\necho 'fatal: no sm_90a here' >&2\nexit 1\n")
         fake.chmod(0o755)
-        with pytest.raises(RuntimeError, match="no sm_90a here"):
-            kernel_build.build(KERNEL_NAME)
-        assert not kernel_build.library_path(KERNEL_NAME).exists()
+        for name in loaders:
+            with pytest.raises(RuntimeError, match="no sm_90a here"):
+                kernel_build.build(name)
+            assert not kernel_build.library_path(name).exists()
     finally:
-        load_library.cache_clear()
+        for load in loaders.values():
+            load.cache_clear()

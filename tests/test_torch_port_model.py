@@ -207,10 +207,15 @@ def test_whole_forward_matches_jax(setup, dtype):
 
 
 def test_training_mode_and_other_variants_raise(setup):
+    """Training mode draws dropout masks from a generator that the train
+    step sets: called without one, the forward raises. The variants of
+    ROADMAP A8 raise at construction."""
     port = setup["port"]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port.train()(torch.from_numpy(setup["imgs"]), torch.from_numpy(setup["aff"]))
-    port.eval()
+    try:
+        with pytest.raises(ValueError, match="generator"):
+            port.train()(torch.from_numpy(setup["imgs"]), torch.from_numpy(setup["aff"]))
+    finally:
+        port.eval()
     rig = make_synthetic_rig(**RIG)
     for kw in (dict(world_feat_arch="conv"), dict(attn_mode="gather"), dict(n_points=8)):
         with pytest.raises(NotImplementedError, match="A8"):

@@ -50,13 +50,13 @@ def test_warp_coords_match_jax_including_the_z_clamp(rng):
     one whose inverse sends the column x=2 to z=0 exactly: the eps clamp
     must give the same huge coordinates on both sides."""
     m = _homographies(rng, 4)
-    ours = warp._warp_coords(torch.from_numpy(m), (9, 13))
+    ours = warp.warp_coords(torch.from_numpy(m), (9, 13))
     ref = jax_warp._warp_coords(jnp.asarray(m), (9, 13))
     for a, b in zip(ours, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-4)
 
     horizon = np.array([[[1.0, 0, 0], [0, 1.0, 0], [0.5, 0, -1.0]]], np.float32)  # its own inverse
-    sx, sy = warp._warp_coords(torch.from_numpy(horizon), (3, 5))
+    sx, sy = warp.warp_coords(torch.from_numpy(horizon), (3, 5))
     rx, ry = jax_warp._warp_coords(jnp.asarray(horizon), (3, 5))
     np.testing.assert_array_equal(sx.numpy(), np.asarray(rx))
     np.testing.assert_array_equal(sy.numpy(), np.asarray(ry))
