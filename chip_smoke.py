@@ -4,7 +4,7 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. card name and power limit, torch and CUDA versions; build the three CUDA
+1. card name and power limit, torch and CUDA versions; build the four CUDA
    kernels from ``mvdetr_tpu_torch/csrc`` (one ``nvcc`` each, all started
    together; timed) and print each build log;
 2. B1, the windowed deformable-attention forward, against its plain PyTorch
@@ -21,23 +21,30 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    with non-identity augmentation affines) and a narrow f32 shape; bitwise
    repeat; ``grad_input`` of ``aten.grid_sampler_2d_backward`` timed beside it;
    kernels and plain versions timed with CUDA events;
-5. a small model on the card against the same weights on the CPU, in f32:
+5. B5, the lane broadcast / reduce experiment: each of its six variants
+   against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
+   the largest output), the variants against each other (``repeat`` tiles,
+   so it must differ from the three broadcasts), the plain versions timed;
+   then the experiment's entry point
+   (``mvdetr_tpu_torch.scripts.exp_vpu_broadcast.main``) as the counted run,
+   which times every variant at 81 repetitions and at 1, at both sizes;
+6. a small model on the card against the same weights on the CPU, in f32:
    the inference forward, then one train step (loss, gradients, updated
    parameters and BatchNorm statistics);
-6. serving at Wildtrack width: 7 cameras, 720x1280 uint8 frames (1080x1920
+7. serving at Wildtrack width: 7 cameras, 720x1280 uint8 frames (1080x1920
    rig frames at img_reduce=12), 120x360 BEV, 60x180 encoder grid, shadow
    transformer at n_points=4 and radius 4, bf16 compute, batch 2; one
    warm-up and three timed requests through ``eval_step``, which must launch
    B1 3 times each; a profile of one request;
-7. training at the same width (the configuration ``bench.py`` times: 20
+8. training at the same width (the configuration ``bench.py`` times: 20
    people per frame set, top-100 targets, lr 5e-4 over 100 steps, encoder
    dropout 0.1): one warm-up and five timed ``train_step`` calls on one
    device-resident batch, each launching B1 3 times, B2 3 times and B3 once,
    with a finite loss; a profile of one step; then whether two steps from the
-   same state and generator give bitwise-equal parameters, with PyTorch's
-   default algorithms and with ``torch.use_deterministic_algorithms``
-   (reported, not required: other backwards in the step use atomics);
-8. one JSON line with each kernel's launches, error, times and bound.
+   same state and generator give bitwise-equal parameters and gradients
+   with PyTorch's default algorithms (required), and with
+   ``torch.use_deterministic_algorithms`` (reported, with both step times);
+9. one JSON line with each kernel's launches, error, times and bound.
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -66,7 +73,10 @@ BWD_ATOL = 1e-4  # B2: f32 sums of up to a few hundred terms in another order, o
 WARP_RTOL = 2.0**-6  # B3 in bf16: the final rounding may land one bf16 step (2^-8..2^-7 of the value) apart
 SMALL_MODEL_RTOL = 2e-2  # card stages the attention value in bf16 (2^-9 relative), the CPU keeps f32
 BWD_FLOP_PER_SAMPLE_CHANNEL = 30  # B2: ~3x B1's 10 (three cotangent sums, four value taps)
+LANE_RTOL = 1e-5  # B5, of max|ref|: 81 f32 sums that differ only by FMA contraction, the shuffle tree, the tf32 split
 LR, TOTAL_STEPS = 5e-4, 100
+# medians measured on an H100 80GB HBM3 at 700 W while the BEV upsample was F.interpolate (PERF.md)
+INTERP_SERVE_MS, INTERP_TRAIN_MS = 62.37, 246.25
 
 
 def check(cond: bool, msg: str) -> None:
@@ -304,6 +314,66 @@ def grid_sampler_backward_ms(g, sx, sy, h, w, bev_hw):
     raise RuntimeError("chip_smoke: grid_sampler_2d_backward ran in no dtype")
 
 
+def lane_phase() -> dict:
+    """B5: each variant against its plain version and the variants against
+    each other at both sizes, then the experiment's entry point as the
+    counted run. Returns a record per variant."""
+    import torch
+
+    from mvdetr_tpu_torch.ops import lane_broadcast as lb
+    from mvdetr_tpu_torch.scripts import exp_vpu_broadcast as exp
+
+    lk = lb.LM * lb.D
+    recs = {name: {"by_T": {}} for name in lb.VARIANTS}
+    for t in exp.SIZES:
+        inputs = exp.make_inputs(t, "cuda")
+        outs, scales = {}, {}
+        for name in lb.VARIANTS:
+            if name in lb.BROADCAST_VARIANTS:
+                plain = lambda: lb.lane_broadcast_plain(inputs["x"], inputs["v"], name)  # noqa: E731
+                nbytes, flops = t * (lb.LM * 4 + lk * 2 + lk * 4), lb.REPS * t * (2 * lk + lb.LM)
+            else:
+                plain = lambda: lb.lane_reduce_plain(inputs["dlk"], name)  # noqa: E731
+                nbytes, flops = t * (lk * 4 + lb.LM * 4), lb.REPS * t * 2 * lk
+            out, ref = exp.run(name, inputs), plain()
+            torch.cuda.synchronize()
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            check(bool(torch.isfinite(out).all()), f"B5 {name} T={t}: non-finite output")
+            check(err <= LANE_RTOL * scale, f"B5 {name} T={t}: max abs error {err} > {LANE_RTOL} x {scale}")
+            outs[name], scales[name] = out, scale
+            rec = {"err": err, "plain_ms": cuda_ms(plain, 3), **bound(nbytes, flops)}
+            recs[name]["by_T"][t] = rec
+            print(f"B5 {name} T={t}: max_abs_err={err:.3e} (max |ref| {scale:.1f}), plain {rec['plain_ms']:.3f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+        for a, b in (("matmul", "jnp_repeat"), ("matmul", "bcast3d"), ("r_matmul", "r_reshape_sum")):
+            diff = float((outs[a] - outs[b]).abs().max())
+            print(f"B5 T={t}: {a} vs {b} max abs difference {diff:.3e}")
+            check(diff <= LANE_RTOL * scales[a], f"B5 T={t}: {a} and {b} disagree by {diff}")
+        for other in ("matmul", "jnp_repeat", "bcast3d"):
+            diff = float((outs["repeat"] - outs[other]).abs().max())
+            print(f"B5 T={t}: repeat (the tile) vs {other} max abs difference {diff:.3e}")
+            check(diff > LANE_RTOL * scales[other], f"B5 T={t}: repeat does not differ from {other}")
+        x, v, dlk = inputs["x"], inputs["v"], inputs["dlk"]
+        one_b = cuda_ms(lambda: x.view(t, lb.LM, 1) * v.view(t, lb.LM, lb.D), 20)
+        one_r = cuda_ms(lambda: dlk.view(t, lb.LM, lb.D).sum(-1), 20)
+        print(f"B5 T={t}: one PyTorch call per repetition, times {lb.REPS}: broadcast product "
+              f"{one_b * lb.REPS:.4f} ms, head sum {one_r * lb.REPS:.4f} ms (context only: no single call computes "
+              f"the {lb.REPS}-repetition function)")
+        del inputs, outs, x, v, dlk
+        torch.cuda.empty_cache()
+
+    lb.lane_broadcast.launches.clear()
+    lb.lane_reduce.launches.clear()
+    times = exp.main()
+    launches = {**lb.lane_broadcast.launches, **lb.lane_reduce.launches}
+    for name in lb.VARIANTS:
+        check(launches.get(name, 0) > 0, f"B5: the experiment launched {name} no time")
+        recs[name]["launches"] = launches[name]
+        for t in exp.SIZES:
+            recs[name]["by_T"][t].update(times[(name, t)])
+    return recs
+
+
 def small_model_card_vs_cpu() -> None:
     import torch
 
@@ -435,7 +505,8 @@ def serve_full_width(rig):
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"serve: warm-up {latencies[0]:.1f} ms, timed requests (ms) {[round(t, 3) for t in timed]}, "
-          f"median {med:.3f} ms, {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
+          f"median {med:.3f} ms (with F.interpolate: {INTERP_SERVE_MS} ms), "
+          f"{batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
     print(f"serve: kept detections per frame set {keep.sum(1).tolist()}, offset_clip_fraction "
           f"{float(aux['offset_clip_fraction']):.4f}, B1 launches {launches} in {1 + n_timed} requests")
     profile_table("serve", lambda: eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0),
@@ -480,8 +551,9 @@ def train_full_width(rig, batch):
     timed = times[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train: warm-up {times[0]:.1f} ms, timed steps (ms) {[round(t, 3) for t in timed]}, median {med:.3f} ms, "
-          f"{batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
+    print(f"train: warm-up {times[0]:.1f} ms, timed steps (ms) {[round(t, 3) for t in timed]}, median {med:.3f} ms "
+          f"(with F.interpolate: {INTERP_TRAIN_MS} ms), {batch_size / (med / 1e3):.3f} frame-sets/s, "
+          f"peak memory {peak:.2f} GiB")
     print(f"train: losses {[round(v, 5) for v in losses]}, last step "
           + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches} in {steps} steps")
     profile_table("train", lambda: train_step(state, batch, gen), med,
@@ -489,7 +561,7 @@ def train_full_width(rig, batch):
                    "warp_bwd": ("warp_bwd_",)})
 
     # two steps from the same state and generator, with PyTorch's default
-    # algorithms and with deterministic ones (reported, not required)
+    # algorithms (must be bitwise equal) and with deterministic ones (reported)
     snap = (copy.deepcopy(model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
             copy.deepcopy(state.scheduler.state_dict()), state.step, gen.get_state())
     runs = []
@@ -511,13 +583,16 @@ def train_full_width(rig, batch):
         runs.append(({n: p.detach().clone() for n, p in model.named_parameters()},
                      {n: p.grad.clone() for n, p in model.named_parameters()}, float(aux["loss"]), ms,
                      sorted({str(w.message)[:160] for w in caught})))
+    verdict = {}
     for label, (a, b) in (("default algorithms", runs[:2]), ("deterministic algorithms", runs[2:])):
         differ = [n for n in a[0] if not torch.equal(a[0][n], b[0][n])]
         grads_differ = [n for n in a[1] if not torch.equal(a[1][n], b[1][n])]
+        verdict[label] = not differ and not grads_differ and a[2] == b[2]
         print(f"train, {label}: two steps from the same state and generator give bitwise-equal parameters: "
-              f"{not differ}; losses equal: {a[2] == b[2]}; {len(differ)} of {len(a[0])} parameter leaves and "
-              f"{len(grads_differ)} gradient leaves differ, e.g. {grads_differ[:6]}; step {a[3]:.1f} and "
-              f"{b[3]:.1f} ms; warnings {a[4] + b[4]}")
+              f"{not differ}; gradients: {not grads_differ}; losses equal: {a[2] == b[2]}; {len(differ)} of "
+              f"{len(a[0])} parameter leaves and {len(grads_differ)} gradient leaves differ, the last in forward "
+              f"order {grads_differ[::-1][:6]}; step {a[3]:.1f} and {b[3]:.1f} ms; warnings {a[4] + b[4]}")
+    check(verdict["default algorithms"], "train: two steps with PyTorch's default algorithms are not bitwise equal")
     return launches
 
 
@@ -528,7 +603,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from mvdetr_tpu_torch.ops import kernel_build, msda_windowed, warp
+    from mvdetr_tpu_torch.ops import kernel_build, lane_broadcast, msda_windowed, warp
     from mvdetr_tpu_torch.ops.warp import warp_coords
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -536,13 +611,14 @@ def main() -> int:
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    names = (msda_windowed.KERNEL_NAME, msda_windowed.BWD_KERNEL_NAME, warp.KERNEL_NAME)
+    names = (msda_windowed.KERNEL_NAME, msda_windowed.BWD_KERNEL_NAME, warp.KERNEL_NAME, lane_broadcast.KERNEL_NAME)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(kernel_build.build, names))
     msda_windowed.load_library()
     msda_windowed.load_bwd_library()
     warp.load_library()
+    lane_broadcast.load_library()
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.1f} s (in parallel)")
     for name, lib in zip(names, libs):
         print(f"build log {name} -> {os.path.relpath(lib, ROOT)}:\n{(lib.parent / 'build.log').read_text().strip()}")
@@ -581,6 +657,7 @@ def main() -> int:
     b3_errs = [b3["err"], warp_case("narrow-f32", small, nx, ny, 11, 17)["err"]]
     del g, small
     torch.cuda.empty_cache()
+    b5 = lane_phase()
 
     small_model_card_vs_cpu()
     serve_launches = serve_full_width(rig)
@@ -595,7 +672,7 @@ def main() -> int:
         (warp.KERNEL_NAME, "mvdetr_tpu/ops/pallas/warp_bwd.py:43", b3, b3_errs,
          {"train": train_launches[warp.KERNEL_NAME]}),
     ]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": name,
         "route": "cuda",
         "source": f"mvdetr_tpu_torch/csrc/{name}.cu",
@@ -608,7 +685,28 @@ def main() -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec.get("library_ms"),
-    } for name, replaces, rec, errs, by_path in records]}))
+    } for name, replaces, rec, errs, by_path in records]
+    # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
+    tile, big = sorted(b5["matmul"]["by_T"])
+    rows += [{
+        "name": f"{lane_broadcast.KERNEL_NAME}:{variant}",
+        "route": "cuda",
+        "source": f"mvdetr_tpu_torch/csrc/{lane_broadcast.KERNEL_NAME}.cu",
+        "replaces": lane_broadcast.TPU_BODIES[variant],
+        "launches": b5[variant]["launches"],
+        "launches_by_path": {"experiment": b5[variant]["launches"]},
+        "max_abs_err": max(rec[big]["err"], rec[tile]["err"]),
+        "ms": rec[big]["ms"],
+        "plain_ms": rec[big]["plain_ms"],
+        "bound_ms": rec[big]["bound_ms"],
+        "bound_by": rec[big]["bound_by"],
+        "library_ms": None,
+        "T": big,
+        "ms_1rep": rec[big]["ms_1rep"],
+        "us_per_added_rep": rec[big]["us_per_added_rep"],
+        f"at_T{tile}": {k: rec[tile][k] for k in ("ms", "ms_1rep", "us_per_added_rep", "plain_ms", "bound_ms")},
+    } for variant, rec in ((v, r["by_T"]) for v, r in b5.items())]
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

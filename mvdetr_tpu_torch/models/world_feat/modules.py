@@ -12,26 +12,65 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from mvdetr_tpu_torch.models.deformable import DeformableEncoder
 from mvdetr_tpu_torch.models.layers import Conv2d
 from mvdetr_tpu_torch.models.pos_embed import sine_pos_embedding
 
 
-def _resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """NCHW bilinear resize; equals ``jax.image.resize(..., "bilinear")`` for
-    the upsampling the model does (half-pixel centers, no antialias)."""
-    return F.interpolate(x, size=(int(out_hw[0]), int(out_hw[1])), mode="bilinear", align_corners=False)
+def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """``[n_out, n_in]`` f32 weights of ``jax.image.resize(..., "bilinear")``
+    along one axis (``jax/_src/image/scale.py::compute_weight_mat``, in f32
+    as there): the triangle kernel at half-pixel centres, widened by the
+    ratio when downsampling (JAX's default antialias), each output's weights
+    renormalised over the taps inside the input, and outputs whose centre
+    lies outside the input zeroed. For upsampling this is PyTorch's
+    ``align_corners=False`` bilinear with its edge clamp."""
+    inv_scale = np.float32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(n_out, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    dist = np.abs(sample[:, None] - np.arange(n_in, dtype=np.float32)[None, :]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - dist)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[:, None], w, 0).astype(np.float32)
+
+
+def _resize_bilinear(x: torch.Tensor, out_hw, mats=None) -> torch.Tensor:
+    """NCHW bilinear resize equal to ``jax.image.resize(..., "bilinear")``
+    (`mvdetr_tpu/models/world_feat/modules.py:36-38`), as the separable
+    product ``y = Ry @ x @ Rx^T`` with the :func:`resize_matrix` weights
+    (``mats = (Ry [Ho, Hi], Rx^T [Wi, Wo])`` f32, built when not given).
+
+    Both products run in f32 and the result is cast back to ``x``'s dtype
+    once. Its backward is two more matrix products: no scatter and no float
+    atomics, so a train step on the card repeats bitwise (PyTorch's
+    bilinear ``interpolate`` accumulates its CUDA backward with atomics)."""
+    hi, wi = x.shape[-2:]
+    if mats is None:
+        mats = (torch.from_numpy(resize_matrix(hi, int(out_hw[0]))).to(x.device),
+                torch.from_numpy(resize_matrix(wi, int(out_hw[1])).T.copy()).to(x.device))
+    ry, rx_t = mats
+    if (ry.shape[1], rx_t.shape[0]) != (hi, wi):
+        raise ValueError(f"resize matrices take {ry.shape[1]}x{rx_t.shape[0]} inputs, got {hi}x{wi}")
+    return torch.matmul(ry, torch.matmul(x.float(), rx_t)).to(x.dtype)  # width first: fewer operations
 
 
 class _Resize(nn.Module):
-    def __init__(self, out_hw):
+    """Bilinear resize from ``in_hw`` to ``out_hw``; the two f32 weight
+    matrices are non-persistent buffers (they follow ``.to(device)`` and stay
+    out of ``state_dict``, whose names stay the reference's)."""
+
+    def __init__(self, in_hw, out_hw):
         super().__init__()
         self.out_hw = tuple(int(v) for v in out_hw)
+        self.register_buffer("ry", torch.from_numpy(resize_matrix(int(in_hw[0]), self.out_hw[0])), persistent=False)
+        self.register_buffer("rx_t", torch.from_numpy(resize_matrix(int(in_hw[1]), self.out_hw[1]).T.copy()),
+                             persistent=False)
 
     def forward(self, x):
-        return _resize_bilinear(x, self.out_hw)
+        return _resize_bilinear(x, self.out_hw, (self.ry, self.rx_t))
 
 
 def resolve_attn_mode(attn_mode: str, reference_points: Optional[np.ndarray], hs: int, ws: int) -> str:
@@ -86,7 +125,7 @@ class DeformTransWorldFeat(nn.Module):
             nn.ReLU(),
         )
         self.upsample = nn.Sequential(
-            _Resize(self.world_shape),
+            _Resize(self.grid, self.world_shape),
             Conv2d(hidden_dim, hidden_dim, 3, padding=1, dtype=dtype, init="xavier", generator=generator),
             nn.ReLU(),
         )

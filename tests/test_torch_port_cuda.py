@@ -10,6 +10,8 @@ import torch
 from mvdetr_tpu_torch.geometry import make_synthetic_rig
 from mvdetr_tpu_torch.models import MVDeTr
 from mvdetr_tpu_torch.models.deformable import radial_offset_bias
+from mvdetr_tpu_torch.models.world_feat.modules import _resize_bilinear
+from mvdetr_tpu_torch.ops import lane_broadcast as lb
 from mvdetr_tpu_torch.ops.msda_windowed import (
     ms_deform_attn_windowed,
     ms_deform_attn_windowed_bwd,
@@ -134,3 +136,60 @@ def test_train_step_on_card_launches_each_kernel(cuda_device):
     assert tuple(a - b for a, b in zip(after, counts)) == (3, 3, 1)
     assert np.isfinite(float(aux["loss"])) and state.step == 1
     assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+
+
+@pytest.mark.parametrize("variant", ["matmul", "repeat", "jnp_repeat", "bcast3d", "r_matmul", "r_reshape_sum"])
+def test_lane_kernel_matches_plain_on_card(variant, rng, cuda_device):
+    """B5: each variant's kernel against its plain version at the flagship
+    widths (LM=56, D=16), a ragged T=40 and 81 repetitions; the sums differ
+    only by FMA contraction, the shuffle tree and the tf32 hi/lo split ->
+    atol 1e-5 of max|ref|."""
+    t = 40
+    x = torch.from_numpy(rng.standard_normal((t, lb.LM)).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.standard_normal((t, lb.LM * lb.D)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    dlk = torch.from_numpy(rng.standard_normal((t, lb.LM * lb.D)).astype(np.float32)).to(cuda_device)
+    if variant in lb.BROADCAST_VARIANTS:
+        before = lb.lane_broadcast.launches[variant]
+        out, ref = lb.lane_broadcast(x, v, variant), lb.lane_broadcast_plain(x, v, variant)
+        assert lb.lane_broadcast.launches[variant] == before + 1
+    else:
+        before = lb.lane_reduce.launches[variant]
+        out, ref = lb.lane_reduce(dlk, variant), lb.lane_reduce_plain(dlk, variant)
+        assert lb.lane_reduce.launches[variant] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resize_backward_repeats_bitwise_on_card(dtype, rng, cuda_device):
+    """The BEV upsample's resize at the flagship shape (narrow channels):
+    its backward is two matrix products, with no atomics."""
+    x = torch.from_numpy(rng.standard_normal((2, 16, 60, 180)).astype(np.float32)).to(cuda_device, dtype)
+    g = torch.from_numpy(rng.standard_normal((2, 16, 120, 360)).astype(np.float32)).to(cuda_device, dtype)
+    grads = []
+    for _ in range(2):
+        xt = x.clone().requires_grad_()
+        _resize_bilinear(xt, (120, 360)).backward(g)
+        grads.append(xt.grad)
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_two_train_steps_repeat_bitwise_on_card(cuda_device):
+    """Two bf16 train steps with dropout, from the same initial state and
+    generator seed, with PyTorch's default algorithms: bitwise-equal losses,
+    gradients and parameters."""
+    rig = make_synthetic_rig(**RIG)
+    batch = synthetic_train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=0)
+    runs = []
+    for _ in range(2):
+        model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, compute_dtype=torch.bfloat16, device="cuda",
+                                seed=0)
+        state = create_train_state(model, lr=5e-4, total_steps=10)
+        _, aux = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        runs.append((float(aux["loss"]),
+                     {n: (p.detach().clone(), p.grad.clone()) for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    for n, (p, g) in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][n][0]) and torch.equal(g, runs[1][1][n][1]), n

@@ -49,7 +49,7 @@ def test_package_and_chip_smoke_import_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("ops.msda_windowed", "ops.warp", "ops.sampling", "losses", "data.targets", "train.trainer",
-                 "train.optim", "train.state", "models.layers"):
+                 "train.optim", "train.state", "models.layers", "ops.lane_broadcast", "scripts.exp_vpu_broadcast"):
         assert f"mvdetr_tpu_torch.{name}" in report["imported"], name
 
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -82,11 +82,12 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 
 def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp_path):
     """No nvcc, or an nvcc that fails: building (and so the first launch of
-    each of B1, B2 and B3) raises; nothing substitutes the plain version."""
-    from mvdetr_tpu_torch.ops import kernel_build, msda_windowed, warp
+    each of B1, B2, B3 and B5) raises; nothing substitutes the plain version."""
+    from mvdetr_tpu_torch.ops import kernel_build, lane_broadcast, msda_windowed, warp
 
     loaders = {msda_windowed.KERNEL_NAME: msda_windowed.load_library,
-               msda_windowed.BWD_KERNEL_NAME: msda_windowed.load_bwd_library, warp.KERNEL_NAME: warp.load_library}
+               msda_windowed.BWD_KERNEL_NAME: msda_windowed.load_bwd_library, warp.KERNEL_NAME: warp.load_library,
+               lane_broadcast.KERNEL_NAME: lane_broadcast.load_library}
     monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernel_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_HOME", raising=False)
