@@ -14,8 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the TPU's large-radius variant);
 3. B2, its backward, against the plain backward: at the flagship shape
    (random offsets past the clamp; the radial init shifted by integers, where
-   exactly integer offsets must get exactly zero cotangents) and at narrow
-   shapes (R=1 and R=8); two launches must be bitwise equal;
+   exactly integer offsets must get exactly zero cotangents), both timed
+   whole and by side (value side, query side, each beside its bound), and
+   at narrow shapes (R=0, 1, 8, 12 and 16; a 37x101 grid; D=8, 32 and 5;
+   5 cameras over 3 levels); two launches must be bitwise equal;
 4. B3, the warp backward, against its plain version at the flagship shape
    (g [14, 43200, 128] bf16 at the coordinates of the bench rig's homographies
    with non-identity augmentation affines) and a narrow f32 shape; bitwise
@@ -73,6 +75,7 @@ BWD_ATOL = 1e-4  # B2: f32 sums of up to a few hundred terms in another order, o
 WARP_RTOL = 2.0**-6  # B3 in bf16: the final rounding may land one bf16 step (2^-8..2^-7 of the value) apart
 SMALL_MODEL_RTOL = 2e-2  # card stages the attention value in bf16 (2^-9 relative), the CPU keeps f32
 BWD_FLOP_PER_SAMPLE_CHANNEL = 30  # B2: ~3x B1's 10 (three cotangent sums, four value taps)
+BWD_VALUE_FLOP_PER_SAMPLE_CHANNEL = 8  # B2's value side: four taps, one FMA each (the query side the other 22)
 LANE_RTOL = 1e-5  # B5, of max|ref|: 81 f32 sums that differ only by FMA contraction, the shuffle tree, the tf32 split
 LR, TOTAL_STEPS = 5e-4, 100
 # medians measured on an H100 80GB HBM3 at 700 W while the BEV upsample was F.interpolate (PERF.md)
@@ -174,21 +177,23 @@ def train_batch(rig, batch_size, world_reduce, img_reduce, seed, num_person=20, 
             "imgs_gt": {k: np.stack([g[k] for g in imgs_gt]) for k in imgs_gt[0]}}
 
 
-def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer):
+def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None):
     """bf16 value, f32 offsets (uniform past the clamp, or the radial init
-    shifted by integers) and softmax weights, on the card."""
+    shifted by integers) and softmax weights, on the card; ``c`` cameras
+    (default ``l``)."""
     import torch
 
     from mvdetr_tpu_torch.models.deformable import radial_offset_bias
 
+    c = l if c is None else c
     value = torch.from_numpy(rng.standard_normal((b, l, h, w, m, d), dtype=np.float32))
     if integer:
         off = radial_offset_bias(m, l, p, max_radius=radius).reshape(m, l, p, 2) + rng.integers(
-            -2, 3, (b, l, h, w, m, l, p, 2))
+            -2, 3, (b, c, h, w, m, l, p, 2))
     else:
-        off = rng.uniform(-radius - 2.0, radius + 2.0, (b, l, h, w, m, l, p, 2))
-    logits = torch.from_numpy(rng.standard_normal((b, l, h, w, m, l * p), dtype=np.float32))
-    wgt = torch.softmax(logits, -1).reshape(b, l, h, w, m, l, p)
+        off = rng.uniform(-radius - 2.0, radius + 2.0, (b, c, h, w, m, l, p, 2))
+    logits = torch.from_numpy(rng.standard_normal((b, c, h, w, m, l * p), dtype=np.float32))
+    wgt = torch.softmax(logits, -1).reshape(b, c, h, w, m, l, p)
     return value.cuda().to(torch.bfloat16), torch.from_numpy(off.astype(np.float32)).cuda(), wgt.cuda()
 
 
@@ -218,14 +223,17 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed):
     return rec
 
 
-def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed):
-    """B2 vs the plain backward on the card at one shape; returns a record."""
+def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
+    """B2 vs the plain backward on the card at one shape (``c`` cameras,
+    default ``l``); when ``timed``, the whole launch, its value side and its
+    query side are timed, each beside its bound. Returns a record."""
     import torch
 
     from mvdetr_tpu_torch.ops.msda_windowed import ms_deform_attn_windowed_bwd, msda_windowed_bwd
 
-    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer)
-    g = torch.from_numpy(rng.standard_normal((b, l, h, w, m * d), dtype=np.float32)).cuda()
+    c = l if c is None else c
+    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c)
+    g = torch.from_numpy(rng.standard_normal((b, c, h, w, m * d), dtype=np.float32)).cuda()
     out = msda_windowed_bwd(v, o, wg, g, radius)
     again = msda_windowed_bwd(v, o, wg, g, radius)
     ref = ms_deform_attn_windowed_bwd(v, o, wg, g, radius)
@@ -243,17 +251,26 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed):
         nonzero = int((out[1][exact] != 0).sum())
         msg = f", {float(exact.float().mean()):.3f} of offsets exact integers, {nonzero} nonzero cotangents there"
         check(nonzero == 0, f"B2 {name}: integer offsets got nonzero cotangents")
-    print(f"B2 {name}: B={b} L=C={l} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err g_value/g_offsets/g_weights "
+    print(f"B2 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err g_value/g_offsets/g_weights "
           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bitwise repeat{msg}")
     rec = {"err": max(errs)}
     if timed:
         nbytes = (v.numel() * 2 + (o.numel() + wg.numel() + g.numel()) * 4
                   + sum(x.numel() for x in out) * 4)
+        value_bytes = (o.numel() + wg.numel() + g.numel() + out[0].numel()) * 4
+        query_bytes = v.numel() * 2 + (o.numel() + wg.numel() + g.numel() + out[1].numel() + out[2].numel()) * 4
+        value_flops = BWD_VALUE_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d
         rec.update(bound(nbytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d))
+        rec["value_bound_ms"] = bound(value_bytes, value_flops)["bound_ms"]
+        rec["query_bound_ms"] = bound(query_bytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d - value_flops)["bound_ms"]
         rec["ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius), 10)
+        rec["value_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="value"), 10)
+        rec["query_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="query"), 10)
         rec["plain_ms"] = cuda_ms(lambda: ms_deform_attn_windowed_bwd(v, o, wg, g, radius), 3)
-        print(f"B2 {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} "
-              f"ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
+        print(f"B2 {name}: kernel {rec['ms']:.4f} ms (value side {rec['value_ms']:.4f} ms, bound "
+              f"{rec['value_bound_ms']:.4f} ms, {value_bytes / 1e6:.1f} MB; query side {rec['query_ms']:.4f} ms, "
+              f"bound {rec['query_bound_ms']:.4f} ms, {query_bytes / 1e6:.1f} MB), plain {rec['plain_ms']:.3f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
     return rec
 
 
@@ -635,10 +652,18 @@ def main() -> int:
     b1_errs.append(fwd_case("flagship-R16", **{**flagship, "radius": 16}, integer=False, rng=rng, timed=True)["err"])
 
     b2 = bwd_case("flagship-random", **flagship, integer=False, rng=rng, timed=True)
-    b2_errs = [b2["err"], bwd_case("flagship-integer", **flagship, integer=True, rng=rng, timed=False)["err"]]
-    for radius in (1, 8):
+    b2_int = bwd_case("flagship-integer", **flagship, integer=True, rng=rng, timed=True)
+    b2.update({"ms_integer": b2_int["ms"], "value_ms_integer": b2_int["value_ms"],
+               "query_ms_integer": b2_int["query_ms"]})
+    b2_errs = [b2["err"], b2_int["err"]]
+    for radius in (0, 1, 8, 12, 16):
         b2_errs.append(bwd_case(f"narrow-R{radius}", **narrow, radius=radius, integer=False, rng=rng,
                                 timed=False)["err"])
+    # ragged grid (no multiple of any tile), other head widths, more cameras than levels
+    edge_cases = {"narrow-37x101": dict(narrow, h=37, w=101), "narrow-D8": dict(narrow, d=8),
+                  "narrow-D32": dict(narrow, d=32), "narrow-D5": dict(narrow, d=5), "narrow-C5": dict(narrow, c=5)}
+    for name, shape in edge_cases.items():
+        b2_errs.append(bwd_case(name, **shape, radius=4, integer=False, rng=rng, timed=False)["err"])
 
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
@@ -686,6 +711,9 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec.get("library_ms"),
     } for name, replaces, rec, errs, by_path in records]
+    # B2: its two sides, each beside its bound, and the times at integer offsets
+    rows[1].update({k: b2[k] for k in ("value_ms", "query_ms", "value_bound_ms", "query_bound_ms", "ms_integer",
+                                       "value_ms_integer", "query_ms_integer")})
     # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
     tile, big = sorted(b5["matmul"]["by_T"])
     rows += [{

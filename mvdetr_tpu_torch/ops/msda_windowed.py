@@ -261,20 +261,30 @@ def load_bwd_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(kernel_build.build(BWD_KERNEL_NAME)))
     lib.msda_windowed_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_launch.restype = ctypes.c_int
+    lib.msda_windowed_bwd_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_sides_launch.restype = ctypes.c_int
     lib.msda_windowed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
+_BWD_SIDES = {"query": 1, "value": 2, "both": 3}
+
+
 def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor, g: torch.Tensor,
-                      radius: int):
+                      radius: int, side: str = "both"):
     """Launch the B2 kernel on the forward's staged inputs (bf16 value, f32
     raw offsets and weights) and the f32 cotangent ``g [B, C, H, W, M*D]``,
     all contiguous on one CUDA device -> f32 ``(g_value, g_offsets,
     g_weights)`` shaped as the inputs.
 
-    Raises on any input the kernel does not take; never computes on another
-    path. Adds one to ``msda_windowed_bwd.launches`` per launch."""
+    ``side`` ``"value"`` or ``"query"`` runs only the kernel of ``g_value`` or
+    of ``(g_offsets, g_weights)`` (to time each); the other outputs are then
+    left uninitialised. Raises on any input the kernel does not take; never
+    computes on another path. Adds one to ``msda_windowed_bwd.launches`` per
+    launch."""
+    if side not in _BWD_SIDES:
+        raise ValueError(f"msda_windowed_bwd: side must be one of {sorted(_BWD_SIDES)}, got {side!r}")
     b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_bwd", value, offsets, weights, radius)
     if g.device != value.device or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError(f"msda_windowed_bwd: g must be contiguous f32 on {value.device}, got {g.dtype} on {g.device}")
@@ -291,10 +301,10 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     lib = load_bwd_library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        err = lib.msda_windowed_bwd_launch(
+        err = lib.msda_windowed_bwd_sides_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), g.data_ptr(),
             g_value.data_ptr(), g_off.data_ptr(), g_wgt.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), stream,
+            b, c, l, h, w, m, d, p, int(radius), _BWD_SIDES[side], stream,
         )
     if err != 0:
         msg = lib.msda_windowed_bwd_error_string(err).decode()

@@ -45,29 +45,42 @@ def test_kernel_matches_plain_on_card(radius, m, d, rng, cuda_device):
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("radius,m,d,integer", [(4, 8, 16, False), (4, 8, 16, True), (1, 2, 16, False),
-                                                (8, 2, 16, False), (12, 2, 16, False), (2, 3, 21, False)])
-def test_bwd_kernel_matches_plain_on_card(radius, m, d, integer, rng, cuda_device):
-    """B2 vs the plain backward on the same bf16 value: f32 sums of a few
-    hundred terms in another order, cotangents of order 1-10 -> atol 1e-4.
-    Exactly integer offsets give exactly zero offset cotangents; two launches are
-    bitwise equal. D=21 takes two channel chunks on the value side."""
+@pytest.mark.parametrize("radius,m,d,integer,c,hw", [
+    (4, 8, 16, False, 3, (9, 21)), (4, 8, 16, True, 3, (9, 21)), (0, 2, 16, False, 3, (9, 21)),
+    (1, 2, 16, False, 3, (9, 21)), (8, 2, 16, False, 3, (9, 21)), (12, 2, 16, False, 3, (9, 21)),
+    (16, 2, 16, False, 3, (9, 21)), (2, 3, 21, False, 3, (9, 21)), (4, 2, 8, False, 3, (9, 21)),
+    (4, 2, 32, False, 3, (9, 21)), (4, 2, 5, False, 3, (9, 21)), (4, 2, 16, False, 3, (37, 101)),
+    (4, 2, 16, False, 5, (9, 21)), (3, 2, 16, True, 2, (37, 101)),
+])
+def test_bwd_kernel_matches_plain_on_card(radius, m, d, integer, c, hw, rng, cuda_device):
+    """B2 vs the plain backward on the same bf16 value (L=3 levels, ``c``
+    cameras): f32 sums of a few hundred terms in another order, cotangents of
+    order 1-10 -> atol 1e-4 of max(1, max|ref|). Exactly integer offsets give
+    exactly zero offset cotangents; two launches are bitwise equal, and so
+    are the value side and the query side launched alone. D=21 and D=32 take
+    two channel chunks on the value side, D=5 and D=8 part of one; 37x101 is
+    no multiple of the value tile."""
     l, p = 3, 4
-    value, off, wgt = windowed_inputs(rng, 2, l, 9, 21, m, d, p, l, -radius - 1.5, radius + 1.5)
+    h, wd = hw
+    value, off, wgt = windowed_inputs(rng, 2, l, h, wd, m, d, p, c, -radius - 1.5, radius + 1.5)
     if integer:
         off = (radial_offset_bias(m, l, p, max_radius=radius).reshape(m, l, p, 2)
                + rng.integers(-2, 3, off.shape)).astype(np.float32)
     v = torch.from_numpy(value).to(cuda_device, torch.bfloat16)
     o = torch.from_numpy(off).to(cuda_device)
     w = torch.from_numpy(wgt).to(cuda_device)
-    g = torch.from_numpy(rng.standard_normal((2, l, 9, 21, m * d)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((2, c, h, wd, m * d)).astype(np.float32)).to(cuda_device)
     ours = msda_windowed_bwd(v, o, w, g, radius)
     again = msda_windowed_bwd(v, o, w, g, radius)
+    value_side = msda_windowed_bwd(v, o, w, g, radius, side="value")[0]
+    query_side = msda_windowed_bwd(v, o, w, g, radius, side="query")[1:]
     ref = ms_deform_attn_windowed_bwd(v, o, w, g, radius)
     torch.cuda.synchronize()
     for a, b, r in zip(ours, again, ref):
         assert torch.equal(a, b)
-        torch.testing.assert_close(a, r, rtol=0, atol=1e-4)
+        torch.testing.assert_close(a, r, rtol=0, atol=1e-4 * max(1.0, float(r.abs().max())))
+    assert torch.equal(value_side, ours[0])
+    assert torch.equal(query_side[0], ours[1]) and torch.equal(query_side[1], ours[2])
     if integer:  # the radial init's cos(pi/2) ~ 1e-16 components are not exact integers
         exact = o == torch.round(o)
         assert exact.float().mean() > 0.5 and int((ours[1][exact] != 0).sum()) == 0

@@ -5,6 +5,7 @@ kernel never falls back to another path."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -110,3 +111,12 @@ def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp
     finally:
         for load in loaders.values():
             load.cache_clear()
+
+
+@pytest.mark.parametrize("name", ["msda_windowed_bwd", "warp_bwd"])
+def test_backward_kernels_use_no_atomics(name):
+    """The backward kernels sum each output in one fixed order, so two train
+    steps repeat bitwise: outside comments, their sources name no atomic
+    operation (CUDA's atomic*() or PTX atom/red)."""
+    code = re.sub(r"//[^\n]*", "", (PACKAGE / "csrc" / f"{name}.cu").read_text())
+    assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)

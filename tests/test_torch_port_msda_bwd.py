@@ -124,6 +124,19 @@ def test_plain_bwd_matches_xla_vjp_at_non_integer_offsets(radius, rng):
     _assert_all_close(_port_bwd(value, off, wgt, g, radius), _xla_vjp(value, off, wgt, g, radius))
 
 
+@pytest.mark.parametrize("radius,m,d,c,h,w", [(0, 2, 16, 3, 5, 9), (2, 2, 5, 3, 6, 11), (2, 2, 8, 3, 6, 11),
+                                               (1, 1, 32, 3, 6, 11), (2, 2, 16, 5, 6, 11), (3, 2, 16, 2, 9, 37)])
+def test_plain_bwd_matches_pallas_at_the_card_cases(radius, m, d, c, h, w, rng):
+    """The plain backward, which the card's B2 kernel is held against, agrees
+    with the Pallas backward at the edges the kernel's cases cover: R=0,
+    D=5, 8 and 32 (part of one 16-channel chunk, two chunks), more or fewer
+    cameras than levels (C=5 and C=2 over L=3), and a 9x37 grid."""
+    l, p = 3, 4
+    value, off, wgt = windowed_inputs(rng, 1, l, h, w, m, d, p, c, -radius - 1.5, radius + 1.5)
+    g = rng.standard_normal((1, c, h, w, m * d)).astype(np.float32)
+    _assert_all_close(_port_bwd(value, off, wgt, g, radius), _pallas_bwd(value, off, wgt, g, radius))
+
+
 def test_xla_and_pallas_disagree_at_integer_offsets(rng):
     """The JAX package disagrees with itself at integer offsets (ROADMAP B2):
     the XLA vjp's central difference is far from the Pallas kernel's zero.
@@ -168,6 +181,17 @@ def test_bwd_kernel_wrapper_refuses_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA device only"):
         msda_windowed_bwd(torch.from_numpy(value).to(torch.bfloat16), torch.from_numpy(off),
                           torch.from_numpy(wgt), g, 2)
+    assert msda_windowed_bwd.launches == before
+
+
+def test_bwd_kernel_wrapper_refuses_an_unknown_side(rng):
+    """``side`` picks the value side, the query side or both; anything else
+    raises before a launch."""
+    value, off, wgt = windowed_inputs(rng, 1, 2, 4, 6, 2, 4, 2, 2, -2.0, 2.0)
+    before = msda_windowed_bwd.launches
+    with pytest.raises(ValueError, match="side must be one of"):
+        msda_windowed_bwd(torch.from_numpy(value).to(torch.bfloat16), torch.from_numpy(off),
+                          torch.from_numpy(wgt), torch.zeros(1, 2, 4, 6, 8), 2, side="values")
     assert msda_windowed_bwd.launches == before
 
 
