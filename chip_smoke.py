@@ -8,10 +8,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    kernels from ``mvdetr_tpu_torch/csrc`` (one ``nvcc`` each, all started
    together; timed) and print each build log;
 2. B1, the windowed deformable-attention forward, against its plain PyTorch
-   version on the card: at the flagship shape (random offsets past the
-   clamp, and integer offsets) and at narrow shapes (M*D=32 at R=1, 8, 12
-   and 16); and, timed, at the flagship shape at R=16 (R=12 and 16 close B4,
-   the TPU's large-radius variant);
+   version on the card, two launches bitwise equal: at the flagship shape
+   (random offsets past the clamp, and integer offsets; both timed), at
+   narrow shapes (M*D=32 at R=0, 1, 8, 12 and 16; a 37x101 grid; D=8, 32
+   and 5; 5 cameras over 3 levels), and, timed, at the flagship shape at
+   R=16 (R=12 and 16 close B4, the TPU's large-radius variant);
 3. B2, its backward, against the plain backward: at the flagship shape
    (random offsets past the clamp; the radial init shifted by integers, where
    exactly integer offsets must get exactly zero cotangents), both timed
@@ -197,21 +198,27 @@ def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None):
     return value.cuda().to(torch.bfloat16), torch.from_numpy(off.astype(np.float32)).cuda(), wgt.cuda()
 
 
-def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed):
-    """B1 vs its plain version on the card at one shape; returns a record."""
+def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
+    """B1 vs its plain version on the card at one shape (``c`` cameras,
+    default ``l``); two launches must be bitwise equal. Returns a record."""
     import torch
 
-    from mvdetr_tpu_torch.ops.msda_windowed import ms_deform_attn_windowed, msda_windowed_fwd
+    from mvdetr_tpu_torch.ops.msda_windowed import _fwd_plan, _value_align, ms_deform_attn_windowed, msda_windowed_fwd
 
-    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer)
+    c = l if c is None else c
+    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c)
     out = msda_windowed_fwd(v, o, wg, radius)
+    again = msda_windowed_fwd(v, o, wg, radius)
     ref = ms_deform_attn_windowed(v, o, wg, radius, flatten=False)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    print(f"B1 {name}: B={b} L=C={l} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err={err:.3e} "
-          f"(max |out| {float(ref.abs().max()):.3f}, clamp binds {float((o.abs() > radius).float().mean()):.3f})")
+    plan = _fwd_plan(w, m, d, p, radius, value_align=_value_align(v))  # the plan the wrapper launched
+    print(f"B1 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err={err:.3e} "
+          f"(max |out| {float(ref.abs().max()):.3f}, clamp binds {float((o.abs() > radius).float().mean()):.3f}), "
+          f"bitwise repeat; plan vec={plan.vec} tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads")
     check(bool(torch.isfinite(out).all()), f"B1 {name}: non-finite output")
     check(err <= KERNEL_ATOL, f"B1 {name}: max abs error {err} > {KERNEL_ATOL}")
+    check(torch.equal(out, again), f"B1 {name}: two launches differ")
     rec = {"err": err}
     if timed:
         nbytes = v.numel() * 2 + o.numel() * 4 + wg.numel() * 4 + out.numel() * 4
@@ -643,13 +650,21 @@ def main() -> int:
     rng = np.random.default_rng(0)
     flagship = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4, radius=4)
     narrow = dict(b=1, l=3, h=60, w=180, m=2, d=16, p=4)
+    # ragged grid (no multiple of any tile), other head widths, more cameras than levels
+    edge_cases = {"narrow-37x101": dict(narrow, h=37, w=101), "narrow-D8": dict(narrow, d=8),
+                  "narrow-D32": dict(narrow, d=32), "narrow-D5": dict(narrow, d=5), "narrow-C5": dict(narrow, c=5)}
     b1 = fwd_case("flagship-random", **flagship, integer=False, rng=rng, timed=True)
-    b1_errs = [b1["err"], fwd_case("flagship-integer", **flagship, integer=True, rng=rng, timed=False)["err"]]
-    for radius in (1, 8, 12, 16):
+    b1_int = fwd_case("flagship-integer", **flagship, integer=True, rng=rng, timed=True)
+    b1_errs = [b1["err"], b1_int["err"]]
+    for radius in (0, 1, 8, 12, 16):
         b1_errs.append(fwd_case(f"narrow-R{radius}", **narrow, radius=radius, integer=False, rng=rng,
                                 timed=False)["err"])
+    for name, shape in edge_cases.items():
+        b1_errs.append(fwd_case(name, **shape, radius=4, integer=False, rng=rng, timed=False)["err"])
     # B4 (the TPU's variant for radius > 8) is B1's kernel at that radius: timed at the flagship shape
-    b1_errs.append(fwd_case("flagship-R16", **{**flagship, "radius": 16}, integer=False, rng=rng, timed=True)["err"])
+    b1_r16 = fwd_case("flagship-R16", **{**flagship, "radius": 16}, integer=False, rng=rng, timed=True)
+    b1_errs.append(b1_r16["err"])
+    b1.update({"ms_integer": b1_int["ms"], "ms_R16": b1_r16["ms"]})
 
     b2 = bwd_case("flagship-random", **flagship, integer=False, rng=rng, timed=True)
     b2_int = bwd_case("flagship-integer", **flagship, integer=True, rng=rng, timed=True)
@@ -659,9 +674,6 @@ def main() -> int:
     for radius in (0, 1, 8, 12, 16):
         b2_errs.append(bwd_case(f"narrow-R{radius}", **narrow, radius=radius, integer=False, rng=rng,
                                 timed=False)["err"])
-    # ragged grid (no multiple of any tile), other head widths, more cameras than levels
-    edge_cases = {"narrow-37x101": dict(narrow, h=37, w=101), "narrow-D8": dict(narrow, d=8),
-                  "narrow-D32": dict(narrow, d=32), "narrow-D5": dict(narrow, d=5), "narrow-C5": dict(narrow, c=5)}
     for name, shape in edge_cases.items():
         b2_errs.append(bwd_case(name, **shape, radius=4, integer=False, rng=rng, timed=False)["err"])
 
@@ -711,6 +723,8 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec.get("library_ms"),
     } for name, replaces, rec, errs, by_path in records]
+    # B1: the times at integer offsets and at R=16
+    rows[0].update({k: b1[k] for k in ("ms_integer", "ms_R16")})
     # B2: its two sides, each beside its bound, and the times at integer offsets
     rows[1].update({k: b2[k] for k in ("value_ms", "query_ms", "value_bound_ms", "query_bound_ms", "ms_integer",
                                        "value_ms_integer", "query_ms_integer")})

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,7 +40,6 @@ from mvdetr_tpu_torch.ops import kernel_build
 
 KERNEL_NAME = "msda_windowed_fwd"
 BWD_KERNEL_NAME = "msda_windowed_bwd"
-_SMEM_LIMIT = 232448  # dynamic shared memory one Hopper block may use
 
 
 def ms_deform_attn_windowed(
@@ -185,11 +185,57 @@ def ms_deform_attn_windowed_bwd(
     return g_value, g_off, g_wgt
 
 
+class FwdPlan(NamedTuple):
+    """How B1 tiles one launch: ``vec`` channels per thread (one load of
+    ``2 * vec`` bytes per tap), ``tile_y x tile_x`` queries of one head per
+    block, ``threads`` per block."""
+
+    vec: int
+    tile_y: int
+    tile_x: int
+    threads: int
+
+
+def _check_sizes(name: str, m: int, d: int, radius) -> None:
+    """The sizes B1 and B2 take: ``0 < M*D <= 1024`` and an integer radius
+    ``>= 0``."""
+    if not 0 < m * d <= 1024:
+        raise ValueError(f"{name}: M*D = {m * d} must be in [1, 1024]")
+    if int(radius) != radius or radius < 0:
+        raise ValueError(f"{name}: radius must be a non-negative integer, got {radius}")
+
+
+def _fwd_plan(w: int, m: int, d: int, p: int, radius: int, value_align: int = 16) -> FwdPlan:
+    """B1's tiling for a grid ``w`` cells wide, head width ``d`` (``m``
+    heads), ``p`` points and ``radius``, with the value's data pointer
+    aligned to ``value_align`` bytes; raises ``ValueError`` on what the
+    kernel cannot take. The only planning rule: the wrapper passes its
+    result to the launcher, which checks it again.
+
+    The widest ``vec`` of 8, 4, 2, 1 that divides ``d`` and the alignment,
+    and a tile 16 queries wide of about 128 threads, or 256 from R=8 on,
+    where the taps of a larger tile share more L1 lines (PERF.md, B1).
+    Every tile gives the same bits. The kernel addresses a tap by a 32-bit
+    offset from the query's own cell, so ``(R + 1) * (W + 1) * M * D < 2^31``."""
+    _check_sizes("msda_windowed_fwd", m, d, radius)
+    if p < 0:
+        raise ValueError(f"msda_windowed_fwd: P = {p} must be non-negative")
+    if (radius + 1) * (w + 1) * m * d >= 2**31:
+        raise ValueError(f"msda_windowed_fwd: radius {radius} on a grid {w} wide with M*D = {m * d} reaches taps "
+                         f"beyond a 32-bit offset")
+    vec = next(v for v in (8, 4, 2, 1) if d % v == 0 and value_align % (2 * v) == 0)
+    nchunk = d // vec  # <= 256 for vec >= 4, <= 1024 else: one query always fits the kernel's block
+    q = max(1, (256 if radius >= 8 else 128) // nchunk)
+    tile_x = min(16, q)
+    tile_y = q // tile_x
+    return FwdPlan(vec, tile_y, tile_x, tile_y * tile_x * nchunk)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
     lib = ctypes.CDLL(str(kernel_build.build(KERNEL_NAME)))
-    lib.msda_windowed_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.msda_windowed_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.msda_windowed_fwd_launch.restype = ctypes.c_int
     lib.msda_windowed_fwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_fwd_error_string.restype = ctypes.c_char_p
@@ -216,26 +262,27 @@ def _check_kernel_inputs(name: str, value, offsets, weights, radius):
                          f"{tuple(offsets.shape)}, weights {tuple(weights.shape)}")
     if not (value.is_contiguous() and offsets.is_contiguous() and weights.is_contiguous()):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if not 0 < m * d <= 1024:
-        raise ValueError(f"{name}: M*D = {m * d} must be in [1, 1024]")
-    if int(radius) != radius or radius < 0:
-        raise ValueError(f"{name}: radius must be a non-negative integer, got {radius}")
     return b, c, l, h, w, m, d, p
+
+
+def _value_align(value: torch.Tensor) -> int:
+    """The largest power of two that divides ``value``'s data pointer (0 for
+    a null pointer), as B1's plan takes it."""
+    return value.data_ptr() & -value.data_ptr()
 
 
 def msda_windowed_fwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor,
                       radius: int) -> torch.Tensor:
     """Launch the B1 kernel: ``value [B, L, H, W, M, D]`` bf16, raw
     ``offsets [B, C, H, W, M, L, P, 2]`` f32 and ``weights [B, C, H, W, M, L, P]``
-    f32, all contiguous on one CUDA device -> ``[B, C, H, W, M*D]`` f32.
+    f32, all contiguous on one CUDA device -> ``[B, C, H, W, M*D]`` f32,
+    tiled by :func:`_fwd_plan`.
 
     Raises on any input the kernel does not take; never computes on another
     path. Adds one to ``msda_windowed_fwd.launches`` per launch."""
     b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_fwd", value, offsets, weights, radius)
-    k = m * d
-    if max(1, 256 // k) * m * l * p * 3 * 4 > _SMEM_LIMIT:
-        raise ValueError(f"msda_windowed_fwd: M*L*P = {m * l * p} needs more shared memory than a block has")
-    out = torch.empty((b, c, h, w, k), dtype=torch.float32, device=value.device)
+    plan = _fwd_plan(w, m, d, p, int(radius), value_align=_value_align(value))
+    out = torch.empty((b, c, h, w, m * d), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
         return out
     lib = load_library()
@@ -243,7 +290,7 @@ def msda_windowed_fwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = lib.msda_windowed_fwd_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), stream,
+            b, c, l, h, w, m, d, p, int(radius), plan.vec, plan.tile_y, plan.tile_x, stream,
         )
     if err != 0:
         msg = lib.msda_windowed_fwd_error_string(err).decode()
@@ -286,6 +333,7 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     if side not in _BWD_SIDES:
         raise ValueError(f"msda_windowed_bwd: side must be one of {sorted(_BWD_SIDES)}, got {side!r}")
     b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_bwd", value, offsets, weights, radius)
+    _check_sizes("msda_windowed_bwd", m, d, radius)
     if g.device != value.device or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError(f"msda_windowed_bwd: g must be contiguous f32 on {value.device}, got {g.dtype} on {g.device}")
     if g.numel() != b * c * h * w * m * d:

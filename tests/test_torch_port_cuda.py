@@ -29,20 +29,58 @@ pytestmark = pytest.mark.cuda
 RIG = dict(num_cam=3, img_shape=(96, 160), worldgrid_shape=(48, 96))
 
 
-@pytest.mark.parametrize("radius,m,d", [(4, 8, 16), (1, 2, 16), (8, 2, 16), (2, 3, 5)])
-def test_kernel_matches_plain_on_card(radius, m, d, rng, cuda_device):
-    """CUDA kernel vs the plain version fed the same bf16 value: only the f32
-    summation order differs, outputs of order 1 -> atol 2e-5."""
-    value, off, wgt = windowed_inputs(rng, 2, 3, 9, 21, m, d, 4, 3, -radius - 1.5, radius + 1.5)
+@pytest.mark.parametrize("radius,m,d,integer,c,hw", [
+    (4, 8, 16, False, 3, (9, 21)), (4, 8, 16, True, 3, (9, 21)), (0, 2, 16, False, 3, (9, 21)),
+    (1, 2, 16, False, 3, (9, 21)), (8, 2, 16, False, 3, (9, 21)), (12, 2, 16, False, 3, (9, 21)),
+    (16, 2, 16, False, 3, (9, 21)), (2, 3, 5, False, 3, (9, 21)), (4, 2, 8, False, 3, (9, 21)),
+    (4, 2, 32, False, 3, (9, 21)), (4, 2, 5, False, 3, (9, 21)), (4, 2, 16, False, 3, (37, 101)),
+    (4, 2, 16, False, 5, (9, 21)), (3, 2, 16, True, 2, (37, 101)), (4, 1, 1024, False, 3, (9, 21)),
+    (2, 1, 6, False, 3, (9, 21)),
+])
+def test_kernel_matches_plain_on_card(radius, m, d, integer, c, hw, rng, cuda_device):
+    """B1 vs the plain version fed the same bf16 value (L=3 levels, ``c``
+    cameras): only the f32 summation order may differ, outputs of order 1 ->
+    atol 2e-5. Two launches are bitwise equal, and so are launches of the C
+    entry point under other tiles that fit; it refuses a plan it cannot take.
+    D=5 and D=6 take 2- and 4-byte taps, D=8 one 16-byte tap per head,
+    M*D=1024 one query per block; 37x101 is no multiple of the tile."""
+    from mvdetr_tpu_torch.ops.msda_windowed import _fwd_plan, _value_align, load_library
+
+    l, p = 3, 4
+    h, wd = hw
+    value, off, wgt = windowed_inputs(rng, 2, l, h, wd, m, d, p, c, -radius - 1.5, radius + 1.5)
+    if integer:
+        off = (radial_offset_bias(m, l, p, max_radius=radius).reshape(m, l, p, 2)
+               + rng.integers(-2, 3, off.shape)).astype(np.float32)
     v = torch.from_numpy(value).to(cuda_device, torch.bfloat16)
     o = torch.from_numpy(off).to(cuda_device)
     w = torch.from_numpy(wgt).to(cuda_device)
     before = msda_windowed_fwd.launches
     out = windowed_attention(v, o, w, radius=radius, flatten=False)
+    again = msda_windowed_fwd(v, o, w, radius)
     torch.cuda.synchronize()
-    assert msda_windowed_fwd.launches == before + 1
+    assert msda_windowed_fwd.launches == before + 2
     ref = ms_deform_attn_windowed(v, o, w, radius, flatten=False)
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+    assert torch.equal(out, again)
+    vec = _fwd_plan(wd, m, d, p, radius, value_align=_value_align(v)).vec
+
+    def launch(tile_y, tile_x):
+        res = torch.empty_like(out)
+        err = load_library().msda_windowed_fwd_launch(
+            v.data_ptr(), o.data_ptr(), w.data_ptr(), res.data_ptr(), 2, c, l, h, wd, m, d, p, radius, vec, tile_y,
+            tile_x, torch.cuda.current_stream().cuda_stream)
+        return err, res
+
+    for tile in ((8, 16), (3, 5), (1, 1), (2, 7)):
+        if tile[0] * tile[1] * (d // vec) > (1024 if vec <= 2 else 256):
+            assert launch(*tile)[0] == 1  # cudaErrorInvalidValue: more threads than the block takes
+            continue
+        err, res = launch(*tile)
+        assert err == 0
+        torch.cuda.synchronize()
+        assert torch.equal(res, out), tile
+    assert launch(0, 16)[0] == 1
 
 
 @pytest.mark.parametrize("radius,m,d,integer,c,hw", [

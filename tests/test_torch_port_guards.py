@@ -113,10 +113,10 @@ def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp
             load.cache_clear()
 
 
-@pytest.mark.parametrize("name", ["msda_windowed_bwd", "warp_bwd"])
+@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd"])
 def test_backward_kernels_use_no_atomics(name):
-    """The backward kernels sum each output in one fixed order, so two train
-    steps repeat bitwise: outside comments, their sources name no atomic
-    operation (CUDA's atomic*() or PTX atom/red)."""
+    """B1 and the backward kernels sum each output in one fixed order, so two
+    launches, and two train steps, repeat bitwise: outside comments, their
+    sources name no atomic operation (CUDA's atomic*() or PTX atom/red)."""
     code = re.sub(r"//[^\n]*", "", (PACKAGE / "csrc" / f"{name}.cu").read_text())
     assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)

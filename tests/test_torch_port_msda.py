@@ -17,6 +17,7 @@ from mvdetr_tpu.ops.msda_windowed import ms_deform_attn_windowed as jax_windowed
 from mvdetr_tpu.ops.pallas.msda_kernel import msda_windowed_pallas
 from mvdetr_tpu_torch.models.deformable import radial_offset_bias
 from mvdetr_tpu_torch.ops.msda_windowed import (
+    _fwd_plan,
     ms_deform_attn_windowed,
     msda_windowed_fwd,
     windowed_attention,
@@ -116,3 +117,43 @@ def test_kernel_wrapper_refuses_cpu_tensors(rng):
         msda_windowed_fwd(torch.from_numpy(value).to(torch.bfloat16), torch.from_numpy(off),
                           torch.from_numpy(wgt), 2)
     assert msda_windowed_fwd.launches == before
+
+
+@pytest.mark.parametrize("w,m,d,p,radius,align,vec,tile", [
+    (180, 8, 16, 4, 4, 16, 8, (4, 16)),  # the flagship: 16-byte taps, 2 threads per (query, head)
+    (180, 2, 16, 4, 0, 16, 8, (4, 16)),
+    (180, 8, 16, 4, 7, 16, 8, (4, 16)),
+    (180, 8, 16, 4, 8, 16, 8, (8, 16)),  # from R=8 on: twice the queries
+    (180, 8, 16, 4, 16, 16, 8, (8, 16)),  # B4's radius
+    (101, 2, 5, 4, 4, 16, 1, (1, 16)),  # 2-byte taps, 5 threads per (query, head)
+    (21, 1, 1024, 4, 4, 16, 8, (1, 1)),  # M*D = 1024: 128 threads for one query
+    (21, 1, 1024, 4, 4, 8, 4, (1, 1)),  # 8-byte taps: 256 threads for one query
+    (21, 1, 1022, 4, 4, 16, 2, (1, 1)),  # 4-byte taps: 511 threads for one query
+    (21, 8, 128, 4, 4, 16, 8, (1, 8)),
+    (21, 3, 6, 4, 2, 16, 2, (2, 16)),
+    (180, 8, 16, 4, 4, 4, 2, (1, 16)),  # a value pointer aligned to 4 bytes only
+    (180, 8, 16, 3, 4, 16, 8, (4, 16)),  # P = 3: the generic sample loop
+])
+def test_fwd_plan_admits_the_kernels_shapes(w, m, d, p, radius, align, vec, tile):
+    """B1's plan: the widest tap load that D and the value's alignment
+    allow, 16 queries wide, about 128 threads a block (256 from R=8 on), and
+    never more threads than the kernel's block of that load width takes."""
+    plan = _fwd_plan(w, m, d, p, radius, value_align=align)
+    assert (plan.vec, (plan.tile_y, plan.tile_x)) == (vec, tile)
+    assert plan.threads == tile[0] * tile[1] * (d // vec) <= (1024 if vec <= 2 else 256)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(w=180, m=8, d=129, p=4, radius=4), "M\\*D"),  # M*D > 1024
+    (dict(w=180, m=1, d=1025, p=4, radius=4), "M\\*D"),
+    (dict(w=180, m=0, d=16, p=4, radius=4), "M\\*D"),
+    (dict(w=180, m=8, d=0, p=4, radius=4), "M\\*D"),
+    (dict(w=180, m=8, d=16, p=4, radius=-1), "non-negative"),
+    (dict(w=180, m=8, d=16, p=4, radius=1.5), "non-negative"),
+    (dict(w=180, m=8, d=16, p=-1, radius=4), "non-negative"),
+    (dict(w=2**20, m=8, d=128, p=4, radius=16), "32-bit"),
+    (dict(w=180, m=8, d=128, p=4, radius=100_000), "32-bit"),
+])
+def test_fwd_plan_raises_on_what_the_kernel_cannot_take(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        _fwd_plan(**kwargs)
