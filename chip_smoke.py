@@ -16,9 +16,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. B2, its backward, against the plain backward: at the flagship shape
    (random offsets past the clamp; the radial init shifted by integers, where
    exactly integer offsets must get exactly zero cotangents), both timed
-   whole and by side (value side, query side, each beside its bound), and
-   at narrow shapes (R=0, 1, 8, 12 and 16; a 37x101 grid; D=8, 32 and 5;
-   5 cameras over 3 levels); two launches must be bitwise equal;
+   whole and by side (value side, query side, each beside its bound), at
+   narrow shapes (R=0, 1, 8, 12 and 16; a 37x101 grid; D=8, 32 and 5;
+   5 cameras over 3 levels), and at the flagship shape at R=16 (query side
+   timed); two launches must be bitwise equal; each case prints the query
+   side's plan;
 4. B3, the warp backward, against its plain version at the flagship shape
    (g [14, 43200, 128] bf16 at the coordinates of the bench rig's homographies
    with non-identity augmentation affines) and a narrow f32 shape; bitwise
@@ -233,10 +235,11 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
 def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
     """B2 vs the plain backward on the card at one shape (``c`` cameras,
     default ``l``); when ``timed``, the whole launch, its value side and its
-    query side are timed, each beside its bound. Returns a record."""
+    query side are timed, each beside its bound (``timed="query"``: the
+    query side alone). Returns a record."""
     import torch
 
-    from mvdetr_tpu_torch.ops.msda_windowed import ms_deform_attn_windowed_bwd, msda_windowed_bwd
+    from mvdetr_tpu_torch.ops.msda_windowed import _query_plan, ms_deform_attn_windowed_bwd, msda_windowed_bwd
 
     c = l if c is None else c
     v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c)
@@ -258,21 +261,27 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
         nonzero = int((out[1][exact] != 0).sum())
         msg = f", {float(exact.float().mean()):.3f} of offsets exact integers, {nonzero} nonzero cotangents there"
         check(nonzero == 0, f"B2 {name}: integer offsets got nonzero cotangents")
+    plan = _query_plan(v, g, p, radius)  # the plan the wrapper launched the query side with
     print(f"B2 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err g_value/g_offsets/g_weights "
-          f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bitwise repeat{msg}")
+          f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bitwise repeat{msg}; query side plan vec={plan.vec} tile "
+          f"{plan.tile_y}x{plan.tile_x}, {plan.threads} threads")
     rec = {"err": max(errs)}
     if timed:
+        value_flops = BWD_VALUE_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d
+        query_bytes = v.numel() * 2 + (o.numel() + wg.numel() + g.numel() + out[1].numel() + out[2].numel()) * 4
+        rec["query_bound_ms"] = bound(query_bytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d - value_flops)["bound_ms"]
+        rec["query_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="query"), 10)
+        if timed == "query":
+            print(f"B2 {name}: query side {rec['query_ms']:.4f} ms, bound {rec['query_bound_ms']:.4f} ms "
+                  f"({query_bytes / 1e6:.1f} MB)")
+            return rec
         nbytes = (v.numel() * 2 + (o.numel() + wg.numel() + g.numel()) * 4
                   + sum(x.numel() for x in out) * 4)
         value_bytes = (o.numel() + wg.numel() + g.numel() + out[0].numel()) * 4
-        query_bytes = v.numel() * 2 + (o.numel() + wg.numel() + g.numel() + out[1].numel() + out[2].numel()) * 4
-        value_flops = BWD_VALUE_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d
         rec.update(bound(nbytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d))
         rec["value_bound_ms"] = bound(value_bytes, value_flops)["bound_ms"]
-        rec["query_bound_ms"] = bound(query_bytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wg.numel() * d - value_flops)["bound_ms"]
         rec["ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius), 10)
         rec["value_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="value"), 10)
-        rec["query_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="query"), 10)
         rec["plain_ms"] = cuda_ms(lambda: ms_deform_attn_windowed_bwd(v, o, wg, g, radius), 3)
         print(f"B2 {name}: kernel {rec['ms']:.4f} ms (value side {rec['value_ms']:.4f} ms, bound "
               f"{rec['value_bound_ms']:.4f} ms, {value_bytes / 1e6:.1f} MB; query side {rec['query_ms']:.4f} ms, "
@@ -676,6 +685,9 @@ def main() -> int:
                                 timed=False)["err"])
     for name, shape in edge_cases.items():
         b2_errs.append(bwd_case(name, **shape, radius=4, integer=False, rng=rng, timed=False)["err"])
+    b2_r16 = bwd_case("flagship-R16", **{**flagship, "radius": 16}, integer=False, rng=rng, timed="query")
+    b2_errs.append(b2_r16["err"])
+    b2["query_ms_R16"] = b2_r16["query_ms"]
 
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
@@ -725,9 +737,9 @@ def main() -> int:
     } for name, replaces, rec, errs, by_path in records]
     # B1: the times at integer offsets and at R=16
     rows[0].update({k: b1[k] for k in ("ms_integer", "ms_R16")})
-    # B2: its two sides, each beside its bound, and the times at integer offsets
+    # B2: its two sides, each beside its bound, the times at integer offsets and the query side's at R=16
     rows[1].update({k: b2[k] for k in ("value_ms", "query_ms", "value_bound_ms", "query_bound_ms", "ms_integer",
-                                       "value_ms_integer", "query_ms_integer")})
+                                       "value_ms_integer", "query_ms_integer", "query_ms_R16")})
     # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
     tile, big = sorted(b5["matmul"]["by_T"])
     rows += [{

@@ -8,28 +8,53 @@
 //
 // and the cotangent g of out, it returns three f32 cotangents. Per query
 // (b, c, y, x), head m and sample (l, p), with ix = floor(ox), fx = ox - ix
-// taken from the clamped offset itself (as the forward does) and the four
+// taken from the clamped offset itself (as the forward does), the four
 // taps v00 = value[y0, x0], v01 = value[y0, x0+1], v10, v11 (zero outside
-// the grid):
+// the grid) and their dot products with g over the head's channels,
+// Gab = sum_d g_d vab_d:
 //
-//   g_w  = sum_d g * ((1-fy)((1-fx)v00 + fx v01) + fy((1-fx)v10 + fx v11))
-//   g_ox = w [|ox_raw| <= R] sum_d g ((1-fy)(sa v00 + sb v01) + fy(sa v10 + sb v11))
-//   g_oy = w [|oy_raw| <= R] sum_d g ((1-fx)(sa' v00 + sb' v10) + fx(sa' v01 + sb' v11))
+//   g_w  = (1-fy)((1-fx)G00 + fx G01) + fy((1-fx)G10 + fx G11)
+//   g_ox = w [|ox_raw| <= R] ((1-fy)(sa G00 + sb G01) + fy(sa G10 + sb G11))
+//   g_oy = w [|oy_raw| <= R] ((1-fx)(sa' G00 + sb' G10) + fx(sa' G01 + sb' G11))
 //   g_value[tap] += (w * cy) * cx * g          for each of the four taps,
 //
 // with the TPU kernel's hat slopes sa = slope(ox - ix), sb = slope(ox - ix - 1),
 // slope(t) = -sign(t) for |t| < 1 and 0 otherwise, t computed in f32. These
 // are the TPU kernel's 81-shift hat sums written as 4 taps: for a fraction in
-// (0, 1) the slopes are -1 and +1 (g_ox ~ v01 - v00), an integer offset gets
+// (0, 1) the slopes are -1 and +1 (g_ox ~ G01 - G00), an integer offset gets
 // a zero offset cotangent, and a fraction below f32 resolution next to 1 (the
 // radial init's cos(pi/2) ~ 1e-16 components) keeps only one slope, exactly
-// as on the TPU.
+// as on the TPU. Products and sums stay f32 (the TPU kernel at its default
+// bf16 kernel dtype rounds g and v*g to bf16; see ROADMAP C.3).
 //
 // Determinism: no float atomics. Two kernels on the caller's stream:
 //
-// - query side (g_offsets, g_weights): one thread per sample (b, c, y, x, m,
-//   l, p) sums over the D channels of its head in order (8 channels per
-//   16-byte load when D % 8 == 0) and writes its own outputs.
+// - query side (g_offsets, g_weights): B1's structure, mirrored, with the
+//   plan of B1's _fwd_plan (ops/msda_windowed.py; the launcher checks it
+//   again). A block owns a tile of tile_y x tile_x queries of one (b, c) and
+//   one head m, heads adjacent in the grid, so together they read each
+//   query's offsets and weights as one contiguous run. A thread owns one
+//   query and VEC consecutive channels of the head (VEC = 8 when D % 8 == 0:
+//   one 16-byte load per tap; else 4, 2 or 1 channels). It loads its VEC
+//   channels of g once into registers and walks the levels in order, with
+//   level l+1's offsets and weights (two and one float4 at P = 4) streaming
+//   into registers while level l gathers. At P = 4 a level's 16 tap loads
+//   are issued before any sum is combined; other P take one sample at a
+//   time. Per sample the thread forms the TPU kernel's dot products first
+//   (msda_kernel_bwd.py:117-119): Gab over its channels, one FMA per tap and
+//   channel, in channel order. The D / VEC lanes of the (query, head) then
+//   combine their partial Gab in a fixed order: a shuffle butterfly when
+//   they are a power of two <= 32 (adjacent in one warp; every lane ends
+//   with the same bits), else through shared memory, summed by the first
+//   lane in lane order. From the four sums, ~30 scalar operations give a
+//   sample's three cotangents. Where the butterfly left the sums in two or
+//   more lanes, lanes 0 and 1 each take two of a level's four samples (one
+//   instruction stream on each lane's own inputs) and write a float4 of
+//   g_offsets and a float2 of g_weights; else the first lane takes all four
+//   and writes two float4 of g_offsets and one of g_weights (scalars at
+//   other P). The block index is decoded once in 32 bits; taps are read
+//   through L1 at 32-bit byte offsets from the query's own cell (the plan
+//   requires 2(R+1)(W+1)K < 2^31).
 // - value side (g_value): one block of kWarps warps per (b, head m, chunk
 //   of 16 channels, value tile of kTileY x kTileX cells, level l), l fastest
 //   so that the L blocks reading the same g run together. A sample of query
@@ -66,18 +91,29 @@
 // weights 135 MB and g 77 MB (f32), and writes g_value 77 MB, g_offsets
 // 271 MB and g_weights 135 MB: ~1.0 GB, ~0.30 ms at 3.35 TB/s. The
 // arithmetic, ~30 FLOP per (sample, channel) or ~16 GFLOP, is ~0.24 ms at the
-// 67 TFLOP/s f32 rate. The value side alone moves 0.56 GB (0.17 ms). On an
-// H100 80GB HBM3 at 700 W it takes ~2.8 ms at that shape (the value-stationary
-// thread per cell took ~14 ms): about half of it is the per-hit update, which
-// costs ~7 shared-memory wavefronts (record, g, two read-modify-writes), and
-// most of the rest is staging ~2.5 GB of halos through L2; occupancy (7
-// blocks per SM, by registers and shared memory) decides the sizes above.
+// 67 TFLOP/s f32 rate. The value side alone moves 0.56 GB (0.17 ms), the
+// query side 0.93 GB (0.28 ms). On an H100 80GB HBM3 at 700 W the value side
+// takes ~2.8 ms at that shape (the value-stationary thread per cell took
+// ~14 ms): about half of it is the per-hit update, which costs ~7
+// shared-memory wavefronts (record, g, two read-modify-writes), and most of
+// the rest is staging ~2.5 GB of halos through L2; occupancy (7 blocks per
+// SM, by registers and shared memory) decides the sizes above. The query
+// side takes ~0.9 ms (~3.2x its bound; the one thread per sample it
+// replaced, with 64-bit index decoding, g read once per sample and 22 FLOP
+// per (sample, channel), ~1.65 ms). Two things hold it: instruction issue
+// (~200 warp instructions per warp and sample: tap addresses and masks,
+// bf16 unpacking, the dot products, clamps, slopes and cotangents) and L1
+// wavefronts, one per (query, head, tap) as in B1, since a head's 32 bytes
+// of a cell share no 128-byte line with another query's taps. Evict-first
+// cache hints, the outputs staged in shared memory for full-sector writes,
+// and a register cap for 6 blocks per SM were each slower on the card.
 // PERF.md has the measurements.
 //
-// Interface: a plain C function, built with
+// Interface: plain C functions, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and loaded with ctypes (mvdetr_tpu_torch/ops/msda_windowed.py). It launches
-// on the caller's stream, allocates nothing, and returns cudaGetLastError().
+// and loaded with ctypes (mvdetr_tpu_torch/ops/msda_windowed.py, whose
+// _query_plan gives the query side B1's plan). They launch on the caller's
+// stream, allocate nothing, and return a cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,100 +165,279 @@ __device__ __forceinline__ float hat_slope(float t) {
   return fabsf(t) < 1.f ? (t > 0.f ? -1.f : (t < 0.f ? 1.f : 0.f)) : 0.f;
 }
 
-// 8 bf16 channels from one 16-byte load, or zeros for a tap outside the grid
-__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ base, long long i, bool inside, float* out) {
-  if (inside) {
-    const uint4 u = *reinterpret_cast<const uint4*>(base + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// query side: B1's threads per block, load widths and bf16 unpacking
+
+// a thread owns VEC channels of one query's head, so a narrow VEC on a wide
+// head may need up to 1024 threads for one query
+template <int VEC> __host__ __device__ constexpr int max_threads() { return VEC <= 2 ? 1024 : 256; }
+
+// VEC bf16 values as one load
+template <int VEC> struct Raw;
+template <> struct Raw<8> { using T = uint4; };
+template <> struct Raw<4> { using T = uint2; };
+template <> struct Raw<2> { using T = unsigned; };
+template <> struct Raw<1> { using T = unsigned short; };
+
+// bf16 -> f32 is exact: the bf16 bits in the high half of the f32 word
+__device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <int VEC>
+__device__ __forceinline__ void unpack(const typename Raw<VEC>::T& r, float* f) {
+  if constexpr (VEC == 8) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float2 f = __bfloat1622float2(h[k]);
-      out[2 * k] = f.x;
-      out[2 * k + 1] = f.y;
+      f[2 * k] = lo_bf16(w[k]);
+      f[2 * k + 1] = hi_bf16(w[k]);
     }
+  } else if constexpr (VEC == 4) {
+    f[0] = lo_bf16(r.x);
+    f[1] = hi_bf16(r.x);
+    f[2] = lo_bf16(r.y);
+    f[3] = hi_bf16(r.y);
+  } else if constexpr (VEC == 2) {
+    f[0] = lo_bf16(r);
+    f[1] = hi_bf16(r);
   } else {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) out[k] = 0.f;
+    f[0] = lo_bf16((unsigned)r);
   }
 }
 
-// Query side: one thread per sample (b, c, y, x, m, l, p). With vec (D % 8 == 0
-// and 16-byte aligned value and g) the channels are read 8 at a time; the
-// sums run over d in the same order either way.
-__global__ void msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, K]
-                                      const float* __restrict__ offsets,        // [B, C, H, W, M, L, P, 2]
-                                      const float* __restrict__ weights,        // [B, C, H, W, M, L, P]
-                                      const float* __restrict__ g,              // [B, C, H, W, K]
-                                      float* __restrict__ g_off, float* __restrict__ g_w, int C, int L, int H,
-                                      int W, int M, int D, int P, float radius, bool vec, long long num_samples) {
-  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= num_samples) return;
-  // s = ((q * M + m) * L + l) * P + p with q = ((b * C + c) * H + y) * W + x
-  long long r = s / P;
-  const int l = (int)(r % L);
-  r /= L;
-  const int m = (int)(r % M);
-  const long long q = r / M;
-  const int x = (int)(q % W);
-  const int y = (int)((q / W) % H);
-  const long long b = q / ((long long)W * H * C);
-  const int K = M * D;
+// VEC channels of a tap, or zeros for a tap outside the grid
+template <int VEC>
+__device__ __forceinline__ typename Raw<VEC>::T ldg_or_zero(const char* p, bool inside) {
+  typename Raw<VEC>::T r{};
+  if (inside) r = __ldg(reinterpret_cast<const typename Raw<VEC>::T*>(p));
+  return r;
+}
 
-  const float ox_raw = offsets[2 * s];
-  const float oy_raw = offsets[2 * s + 1];
-  const float ox = fminf(fmaxf(ox_raw, -radius), radius);
-  const float oy = fminf(fmaxf(oy_raw, -radius), radius);
-  const float wgt = weights[s];
-  const float ix = floorf(ox);
-  const float iy = floorf(oy);
-  const float fx = ox - ix;
-  const float fy = oy - iy;
-  const int x0 = x + (int)ix;
-  const int y0 = y + (int)iy;
-  const bool xa = x0 >= 0 && x0 < W;
-  const bool xb = x0 + 1 >= 0 && x0 + 1 < W;
-  const bool ya = y0 >= 0 && y0 < H;
-  const bool yb = y0 + 1 >= 0 && y0 + 1 < H;
-  const long long row = (long long)W * K;
-  const __nv_bfloat16* v = value + (b * L + l) * H * row + (long long)m * D;
-  const long long i00 = (long long)y0 * row + (long long)x0 * K;
-  const float* gq = g + q * K + (long long)m * D;
-  const float sax = hat_slope(ox - ix), sbx = hat_slope(ox - (ix + 1.f));
-  const float say = hat_slope(oy - iy), sby = hat_slope(oy - (iy + 1.f));
-
-  float sw = 0.f, sx = 0.f, sy = 0.f;
-  auto add = [&](float gd, float v00, float v01, float v10, float v11) {
-    const float top = (1.f - fx) * v00 + fx * v01;
-    const float bot = (1.f - fx) * v10 + fx * v11;
-    sw += gd * ((1.f - fy) * top + fy * bot);
-    sx += gd * ((1.f - fy) * (sax * v00 + sbx * v01) + fy * (sax * v10 + sbx * v11));
-    sy += gd * ((1.f - fx) * (say * v00 + sby * v10) + fx * (say * v01 + sby * v11));
-  };
-  if (vec) {
-    for (int d = 0; d < D; d += 8) {
-      float a[8], bq[8], c8[8], e[8];
-      load8(v, i00 + d, ya && xa, a);
-      load8(v, i00 + K + d, ya && xb, bq);
-      load8(v, i00 + row + d, yb && xa, c8);
-      load8(v, i00 + row + K + d, yb && xb, e);
-      const float4 g0 = *reinterpret_cast<const float4*>(gq + d);
-      const float4 g1 = *reinterpret_cast<const float4*>(gq + d + 4);
-      const float gd[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+// VEC f32 channels of g
+template <int VEC>
+__device__ __forceinline__ void load_g(const float* p, float* f) {
+  if constexpr (VEC >= 4) {
 #pragma unroll
-      for (int k = 0; k < 8; ++k) add(gd[k], a[k], bq[k], c8[k], e[k]);
+    for (int k = 0; k < VEC; k += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + k));
+      f[k] = t.x;
+      f[k + 1] = t.y;
+      f[k + 2] = t.z;
+      f[k + 3] = t.w;
+    }
+  } else if constexpr (VEC == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    f[0] = t.x;
+    f[1] = t.y;
+  } else {
+    f[0] = __ldg(p);
+  }
+}
+
+// sum_k g[k] * tap[k] over the thread's VEC channels, in channel order
+template <int VEC>
+__device__ __forceinline__ float tap_dot(const float* gv, const typename Raw<VEC>::T& r) {
+  float t[VEC];
+  unpack<VEC>(r, t);
+  float s = gv[0] * t[0];
+#pragma unroll
+  for (int k = 1; k < VEC; ++k) s = __fmaf_rn(gv[k], t[k], s);
+  return s;
+}
+
+// The N partial sums s of this lane (four tap sums per sample) combined over
+// the nchunk lanes of its (query, head), in a fixed order. SHFL: a shuffle
+// butterfly over the whole warp, whose lanes all take part (xor by st <
+// nchunk stays inside the (query, head); a + b == b + a, so every lane ends
+// with the same bits); else through `part` (a float4 per thread of the
+// block), summed by the first lane (chunk 0) in lane order. Either way
+// chunk 0 holds the totals.
+template <int N, bool SHFL>
+__device__ __forceinline__ void combine(float* s, int nchunk, int chunk, float4* part) {
+  if constexpr (SHFL) {
+    for (int st = 1; st < nchunk; st <<= 1) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[i] += __shfl_xor_sync(kFull, s[i], st);
     }
   } else {
-    for (int d = 0; d < D; ++d) {
-      const float v00 = (ya && xa) ? __bfloat162float(v[i00 + d]) : 0.f;
-      const float v01 = (ya && xb) ? __bfloat162float(v[i00 + K + d]) : 0.f;
-      const float v10 = (yb && xa) ? __bfloat162float(v[i00 + row + d]) : 0.f;
-      const float v11 = (yb && xb) ? __bfloat162float(v[i00 + row + K + d]) : 0.f;
-      add(gq[d], v00, v01, v10, v11);
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      part[threadIdx.x] = make_float4(s[i], s[i + 1], s[i + 2], s[i + 3]);
+      __syncthreads();
+      if (chunk == 0) {
+        for (int k = 1; k < nchunk; ++k) {
+          const float4 t = part[threadIdx.x + k];
+          s[i] += t.x;
+          s[i + 1] += t.y;
+          s[i + 2] += t.z;
+          s[i + 3] += t.w;
+        }
+      }
+      __syncthreads();  // part is rewritten next
     }
   }
-  g_w[s] = sw;
-  g_off[2 * s] = fabsf(ox_raw) <= radius ? wgt * sx : 0.f;
-  g_off[2 * s + 1] = fabsf(oy_raw) <= radius ? wgt * sy : 0.f;
+}
+
+// Query side. PT = 4: P is 4 and offsets, weights, g_off and g_w are
+// 16-byte aligned, so a level's samples of a (query, head) are two and one
+// float4 loads and stores, and its 16 tap loads are issued before any sum is
+// combined; PT = 0: any P, one sample at a time, scalar loads and stores.
+// SHFL: the nchunk = D / VEC lanes of a (query, head) are a power of two <=
+// 32, the block is whole warps, and they combine by shuffles; else through
+// shared memory.
+template <int VEC, int PT, bool SHFL>
+__global__ void __launch_bounds__(max_threads<VEC>())
+msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, K]
+                      const float* __restrict__ offsets,        // [B, C, H, W, M, L, P, 2]
+                      const float* __restrict__ weights,        // [B, C, H, W, M, L, P]
+                      const float* __restrict__ g,              // [B, C, H, W, K]
+                      float* __restrict__ g_off, float* __restrict__ g_w, int C, int L, int H, int W, int M, int D,
+                      int P, int radius, int tile_y, int tile_x, int ntx, int nty) {
+  __shared__ float4 part[SHFL ? 1 : max_threads<VEC>()];
+  // blockIdx.x = ((bc * nty + ty) * ntx + tx) * M + m, bc = b * C + c
+  int r = blockIdx.x;
+  const int m = r % M;
+  r /= M;
+  const int tx = r % ntx;
+  r /= ntx;
+  const int ty = r % nty;
+  const int bc = r / nty;
+  const int b = bc / C;
+
+  const int K = M * D;
+  const int nchunk = D / VEC;
+  const int qi = threadIdx.x / nchunk;  // the thread's query in the tile, channels [chunk * VEC, +VEC) of head m
+  const int chunk = threadIdx.x - qi * nchunk;
+  const int ly = qi / tile_x;
+  int y = ty * tile_y + ly, x = tx * tile_x + qi - ly * tile_x;
+  const bool live = y < H && x < W;
+  y = min(y, H - 1);  // a thread past the grid stays for the shuffles and barriers, on a cell inside it,
+  x = min(x, W - 1);  // and writes nothing
+  const float rad = (float)radius;
+
+  const long long q = ((long long)bc * H + y) * W + x;
+  float gv[VEC];
+  load_g<VEC>(g + q * K + (long long)m * D + chunk * VEC, gv);
+
+  // one sample's four partial tap sums s[0..3] (taps 00, 01, 10, 11): the
+  // taps through L1, at 32-bit byte offsets from `own`, the query's own
+  // cell of the level's value plane
+  const int k2 = 2 * K, r2 = 2 * W * K;  // a cell and a row, in bytes; the launcher checks 2 (R+1)(W+1)K < 2^31
+  auto tap_sums = [&](const char* own, float oxr, float oyr, float* s) {
+    const float ox = fminf(fmaxf(oxr, -rad), rad);
+    const float oy = fminf(fmaxf(oyr, -rad), rad);
+    const float ix = floorf(ox);
+    const float iy = floorf(oy);
+    const int x0 = x + (int)ix;
+    const int y0 = y + (int)iy;
+    const bool xa = (unsigned)x0 < (unsigned)W;
+    const bool xb = (unsigned)(x0 + 1) < (unsigned)W;
+    const bool ya = (unsigned)y0 < (unsigned)H;
+    const bool yb = (unsigned)(y0 + 1) < (unsigned)H;
+    const char* p = own + ((int)iy * r2 + (int)ix * k2);
+    s[0] = tap_dot<VEC>(gv, ldg_or_zero<VEC>(p, ya && xa));
+    s[1] = tap_dot<VEC>(gv, ldg_or_zero<VEC>(p + k2, ya && xb));
+    s[2] = tap_dot<VEC>(gv, ldg_or_zero<VEC>(p + r2, yb && xa));
+    s[3] = tap_dot<VEC>(gv, ldg_or_zero<VEC>(p + r2 + k2, yb && xb));
+  };
+  // a sample's cotangents g_w, g_ox, g_oy from its combined tap sums
+  auto cotangents = [&](float oxr, float oyr, float wgt, const float* s, float& cw, float& cox, float& coy) {
+    const float ox = fminf(fmaxf(oxr, -rad), rad);
+    const float oy = fminf(fmaxf(oyr, -rad), rad);
+    const float ix = floorf(ox);
+    const float iy = floorf(oy);
+    const float fx = ox - ix;
+    const float fy = oy - iy;
+    const float sax = hat_slope(ox - ix), sbx = hat_slope(ox - (ix + 1.f));
+    const float say = hat_slope(oy - iy), sby = hat_slope(oy - (iy + 1.f));
+    cw = (1.f - fy) * ((1.f - fx) * s[0] + fx * s[1]) + fy * ((1.f - fx) * s[2] + fx * s[3]);
+    const float sx = (1.f - fy) * (sax * s[0] + sbx * s[1]) + fy * (sax * s[2] + sbx * s[3]);
+    const float sy = (1.f - fx) * (say * s[0] + sby * s[2]) + fx * (say * s[1] + sby * s[3]);
+    cox = fabsf(oxr) <= rad ? wgt * sx : 0.f;
+    coy = fabsf(oyr) <= rad ? wgt * sy : 0.f;
+  };
+
+  const long long s0 = (q * M + m) * L * P;  // the (query, head)'s first sample, samples level-major
+  const float* og = offsets + 2 * s0;
+  const float* wg = weights + s0;
+  float* go = g_off + 2 * s0;
+  float* gw = g_w + s0;
+  const bool writer = live && chunk == 0;
+  // the thread's own cell of level l's value plane, its channels of head m
+  auto own_cell = [&](int l) {
+    return reinterpret_cast<const char*>(value + ((((long long)b * L + l) * H + y) * W + x) * K + (long long)m * D +
+                                         chunk * VEC);
+  };
+  if constexpr (PT == 4) {
+    float4 o01 = make_float4(0.f, 0.f, 0.f, 0.f), o23 = o01, w4 = o01;
+    if (L > 0) {
+      o01 = __ldg(reinterpret_cast<const float4*>(og));
+      o23 = __ldg(reinterpret_cast<const float4*>(og + 4));
+      w4 = __ldg(reinterpret_cast<const float4*>(wg));
+    }
+    for (int l = 0; l < L; ++l) {
+      float4 n01 = o01, n23 = o23, nw = w4;
+      if (l + 1 < L) {  // level l+1's samples in flight while level l gathers
+        n01 = __ldg(reinterpret_cast<const float4*>(og + 8 * (l + 1)));
+        n23 = __ldg(reinterpret_cast<const float4*>(og + 8 * (l + 1) + 4));
+        nw = __ldg(reinterpret_cast<const float4*>(wg + 4 * (l + 1)));
+      }
+      const char* own = own_cell(l);
+      float s[16];
+      tap_sums(own, o01.x, o01.y, s);
+      tap_sums(own, o01.z, o01.w, s + 4);
+      tap_sums(own, o23.x, o23.y, s + 8);
+      tap_sums(own, o23.z, o23.w, s + 12);
+      combine<16, SHFL>(s, nchunk, chunk, part);
+      if (SHFL && nchunk >= 2) {
+        // every lane holds the sums: chunks 0 and 1 take samples 0-1 and 2-3,
+        // one instruction stream on each lane's own inputs
+        const bool hi = chunk & 1;
+        const float4 oo = hi ? o23 : o01;
+        const float wa = hi ? w4.z : w4.x, wb = hi ? w4.w : w4.y;
+        float t[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) t[i] = hi ? s[8 + i] : s[i];
+        float2 cw;
+        float4 co;
+        cotangents(oo.x, oo.y, wa, t, cw.x, co.x, co.y);
+        cotangents(oo.z, oo.w, wb, t + 4, cw.y, co.z, co.w);
+        if (live && chunk < 2) {
+          reinterpret_cast<float4*>(go)[2 * l + chunk] = co;
+          reinterpret_cast<float2*>(gw)[2 * l + chunk] = cw;
+        }
+      } else if (writer) {
+        float4 cw, c01, c23;
+        cotangents(o01.x, o01.y, w4.x, s, cw.x, c01.x, c01.y);
+        cotangents(o01.z, o01.w, w4.y, s + 4, cw.y, c01.z, c01.w);
+        cotangents(o23.x, o23.y, w4.z, s + 8, cw.z, c23.x, c23.y);
+        cotangents(o23.z, o23.w, w4.w, s + 12, cw.w, c23.z, c23.w);
+        reinterpret_cast<float4*>(gw)[l] = cw;
+        reinterpret_cast<float4*>(go)[2 * l] = c01;
+        reinterpret_cast<float4*>(go)[2 * l + 1] = c23;
+      }
+      o01 = n01;
+      o23 = n23;
+      w4 = nw;
+    }
+  } else {
+    for (int l = 0; l < L; ++l) {
+      const char* own = own_cell(l);
+      for (int p = 0; p < P; ++p) {
+        const int i = l * P + p;
+        const float oxr = __ldg(og + 2 * i), oyr = __ldg(og + 2 * i + 1);
+        float s[4];
+        tap_sums(own, oxr, oyr, s);
+        combine<4, SHFL>(s, nchunk, chunk, part);
+        if (writer) {
+          float cw, cox, coy;
+          cotangents(oxr, oyr, __ldg(wg + i), s, cw, cox, coy);
+          gw[i] = cw;
+          go[2 * i] = cox;
+          go[2 * i + 1] = coy;
+        }
+      }
+    }
+  }
 }
 
 // Value side. Layout of the dynamic shared memory: the tile's accumulators
@@ -431,19 +646,50 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
   }
 }
 
+using QueryFn = void (*)(const __nv_bfloat16*, const float*, const float*, const float*, float*, float*, int, int,
+                        int, int, int, int, int, int, int, int, int, int);
+
+template <int VEC>
+QueryFn pick_query(bool p4, bool shfl) {
+  if (p4) return shfl ? msda_bwd_query_kernel<VEC, 4, true> : msda_bwd_query_kernel<VEC, 4, false>;
+  return shfl ? msda_bwd_query_kernel<VEC, 0, true> : msda_bwd_query_kernel<VEC, 0, false>;
+}
+
+// the query side with the plan of _fwd_plan: VEC channels per thread (8, 4,
+// 2 or 1) and a tile of tile_y x tile_x queries per block
 int launch_query(const void* value, const void* offsets, const void* weights, const void* g, void* g_offsets,
-                 void* g_weights, int B, int C, int L, int H, int W, int M, int D, int P, int radius,
-                 cudaStream_t stream) {
-  const int threads = 256;
-  const bool vec = D % 8 == 0 && reinterpret_cast<size_t>(value) % 16 == 0 && reinterpret_cast<size_t>(g) % 16 == 0;
-  const long long num_samples = (long long)B * C * H * W * M * L * P;
-  if (num_samples <= 0) return (int)cudaSuccess;
-  const long long blocks = (num_samples + threads - 1) / threads;
+                 void* g_weights, int B, int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
+                 int tile_y, int tile_x, cudaStream_t stream) {
+  const long long K = (long long)M * D;
+  if (B < 0 || C < 0 || L < 0 || H < 0 || W < 0 || P < 0 || K > 1024 ||
+      2LL * (radius + 1LL) * (W + 1LL) * K >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if ((vec != 1 && vec != 2 && vec != 4 && vec != 8) || D % vec != 0 || tile_y < 1 || tile_x < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long threads = (long long)tile_y * tile_x * (D / vec);
+  if (threads > (vec <= 2 ? 1024 : 256)) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<size_t>(value) % (2 * vec) != 0 || reinterpret_cast<size_t>(g) % std::min(16, 4 * vec) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long ntx = (W + tile_x - 1) / tile_x, nty = (H + tile_y - 1) / tile_y;
+  const long long blocks = (long long)B * C * nty * ntx * M;
+  if (blocks == 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  msda_bwd_query_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+  const bool p4 = P == 4 && reinterpret_cast<size_t>(offsets) % 16 == 0 &&
+                  reinterpret_cast<size_t>(weights) % 16 == 0 && reinterpret_cast<size_t>(g_offsets) % 16 == 0 &&
+                  reinterpret_cast<size_t>(g_weights) % 16 == 0;
+  const int nchunk = D / vec;
+  const bool shfl = nchunk <= 32 && (nchunk & (nchunk - 1)) == 0 && threads % 32 == 0;
+  QueryFn fn = vec == 8 ? pick_query<8>(p4, shfl)
+               : vec == 4 ? pick_query<4>(p4, shfl)
+               : vec == 2 ? pick_query<2>(p4, shfl)
+                          : pick_query<1>(p4, shfl);
+  fn<<<(unsigned)blocks, (unsigned)threads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(offsets),
       static_cast<const float*>(weights), static_cast<const float*>(g), static_cast<float*>(g_offsets),
-      static_cast<float*>(g_weights), C, L, H, W, M, D, P, (float)radius, vec, num_samples);
+      static_cast<float*>(g_weights), C, L, H, W, M, D, P, radius, tile_y, tile_x, (int)ntx, (int)nty);
   return (int)cudaGetLastError();
 }
 
@@ -478,16 +724,20 @@ int launch_value(const void* offsets, const void* weights, const void* g, void* 
 
 }  // namespace
 
-// sides: 1 the query side (g_offsets, g_weights), 2 the value side (g_value), 3 both
+// sides: 1 the query side (g_offsets, g_weights), 2 the value side (g_value),
+// 3 both. vec, tile_y, tile_x: the query side's plan (_fwd_plan), checked
+// again when the query side runs. Returns cudaErrorInvalidValue on a plan or
+// shape the kernels cannot take.
 extern "C" int msda_windowed_bwd_sides_launch(const void* value, const void* offsets, const void* weights,
                                               const void* g, void* g_value, void* g_offsets, void* g_weights, int B,
-                                              int C, int L, int H, int W, int M, int D, int P, int radius, int sides,
-                                              void* stream) {
+                                              int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
+                                              int tile_y, int tile_x, int sides, void* stream) {
   (void)cudaGetLastError();  // start from a clean error state: report only this launch
   if (M <= 0 || D <= 0 || radius < 0 || sides < 1 || sides > 3) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (sides & 1) {
-    const int e = launch_query(value, offsets, weights, g, g_offsets, g_weights, B, C, L, H, W, M, D, P, radius, st);
+    const int e = launch_query(value, offsets, weights, g, g_offsets, g_weights, B, C, L, H, W, M, D, P, radius, vec,
+                               tile_y, tile_x, st);
     if (e != 0) return e;
   }
   if (sides & 2) {
@@ -499,9 +749,10 @@ extern "C" int msda_windowed_bwd_sides_launch(const void* value, const void* off
 
 extern "C" int msda_windowed_bwd_launch(const void* value, const void* offsets, const void* weights, const void* g,
                                         void* g_value, void* g_offsets, void* g_weights, int B, int C, int L, int H,
-                                        int W, int M, int D, int P, int radius, void* stream) {
+                                        int W, int M, int D, int P, int radius, int vec, int tile_y, int tile_x,
+                                        void* stream) {
   return msda_windowed_bwd_sides_launch(value, offsets, weights, g, g_value, g_offsets, g_weights, B, C, L, H, W, M,
-                                        D, P, radius, 3, stream);
+                                        D, P, radius, vec, tile_y, tile_x, 3, stream);
 }
 
 extern "C" const char* msda_windowed_bwd_error_string(int code) {

@@ -215,12 +215,13 @@ def _fwd_plan(w: int, m: int, d: int, p: int, radius: int, value_align: int = 16
     The widest ``vec`` of 8, 4, 2, 1 that divides ``d`` and the alignment,
     and a tile 16 queries wide of about 128 threads, or 256 from R=8 on,
     where the taps of a larger tile share more L1 lines (PERF.md, B1).
-    Every tile gives the same bits. The kernel addresses a tap by a 32-bit
-    offset from the query's own cell, so ``(R + 1) * (W + 1) * M * D < 2^31``."""
+    Every tile gives the same bits. The kernels address a tap by a 32-bit
+    offset from the query's own cell (B2's query side in bytes), so
+    ``2 * (R + 1) * (W + 1) * M * D < 2^31``."""
     _check_sizes("msda_windowed_fwd", m, d, radius)
     if p < 0:
         raise ValueError(f"msda_windowed_fwd: P = {p} must be non-negative")
-    if (radius + 1) * (w + 1) * m * d >= 2**31:
+    if 2 * (radius + 1) * (w + 1) * m * d >= 2**31:
         raise ValueError(f"msda_windowed_fwd: radius {radius} on a grid {w} wide with M*D = {m * d} reaches taps "
                          f"beyond a 32-bit offset")
     vec = next(v for v in (8, 4, 2, 1) if d % v == 0 and value_align % (2 * v) == 0)
@@ -229,6 +230,14 @@ def _fwd_plan(w: int, m: int, d: int, p: int, radius: int, value_align: int = 16
     tile_x = min(16, q)
     tile_y = q // tile_x
     return FwdPlan(vec, tile_y, tile_x, tile_y * tile_x * nchunk)
+
+
+def _query_plan(value: torch.Tensor, g: torch.Tensor, p: int, radius: int) -> FwdPlan:
+    """The plan of B2's query side, whose taps are B1's taps: :func:`_fwd_plan`
+    at the alignment that both the value's taps and ``g``'s loads allow (``vec``
+    f32 channels of g take twice the bytes of ``vec`` bf16 taps)."""
+    _, _, _, w, m, d = value.shape
+    return _fwd_plan(w, m, d, p, radius, value_align=min(_value_align(value), _value_align(g) // 2))
 
 
 @functools.lru_cache(maxsize=None)
@@ -306,9 +315,9 @@ msda_windowed_fwd.launches = 0
 def load_bwd_library() -> ctypes.CDLL:
     """Build (at first use) and load the backward kernel's shared library."""
     lib = ctypes.CDLL(str(kernel_build.build(BWD_KERNEL_NAME)))
-    lib.msda_windowed_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_launch.restype = ctypes.c_int
-    lib.msda_windowed_bwd_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_sides_launch.restype = ctypes.c_int
     lib.msda_windowed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_bwd_error_string.restype = ctypes.c_char_p
@@ -323,7 +332,8 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     """Launch the B2 kernel on the forward's staged inputs (bf16 value, f32
     raw offsets and weights) and the f32 cotangent ``g [B, C, H, W, M*D]``,
     all contiguous on one CUDA device -> f32 ``(g_value, g_offsets,
-    g_weights)`` shaped as the inputs.
+    g_weights)`` shaped as the inputs. The query side (``g_offsets``,
+    ``g_weights``) is tiled by :func:`_query_plan`.
 
     ``side`` ``"value"`` or ``"query"`` runs only the kernel of ``g_value`` or
     of ``(g_offsets, g_weights)`` (to time each); the other outputs are then
@@ -341,6 +351,7 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
                          f"{(b, c, h, w, m * d)}")
     if offsets.data_ptr() % 8:
         raise ValueError("msda_windowed_bwd: offsets must be 8-byte aligned (the kernel reads (x, y) pairs)")
+    plan = _query_plan(value, g, p, int(radius))
     g_value = torch.empty(value.shape, dtype=torch.float32, device=value.device)
     g_off = torch.empty(offsets.shape, dtype=torch.float32, device=value.device)
     g_wgt = torch.empty(weights.shape, dtype=torch.float32, device=value.device)
@@ -352,7 +363,7 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
         err = lib.msda_windowed_bwd_sides_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), g.data_ptr(),
             g_value.data_ptr(), g_off.data_ptr(), g_wgt.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), _BWD_SIDES[side], stream,
+            b, c, l, h, w, m, d, p, int(radius), plan.vec, plan.tile_y, plan.tile_x, _BWD_SIDES[side], stream,
         )
     if err != 0:
         msg = lib.msda_windowed_bwd_error_string(err).decode()

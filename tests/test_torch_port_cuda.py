@@ -83,22 +83,26 @@ def test_kernel_matches_plain_on_card(radius, m, d, integer, c, hw, rng, cuda_de
     assert launch(0, 16)[0] == 1
 
 
-@pytest.mark.parametrize("radius,m,d,integer,c,hw", [
-    (4, 8, 16, False, 3, (9, 21)), (4, 8, 16, True, 3, (9, 21)), (0, 2, 16, False, 3, (9, 21)),
-    (1, 2, 16, False, 3, (9, 21)), (8, 2, 16, False, 3, (9, 21)), (12, 2, 16, False, 3, (9, 21)),
-    (16, 2, 16, False, 3, (9, 21)), (2, 3, 21, False, 3, (9, 21)), (4, 2, 8, False, 3, (9, 21)),
-    (4, 2, 32, False, 3, (9, 21)), (4, 2, 5, False, 3, (9, 21)), (4, 2, 16, False, 3, (37, 101)),
-    (4, 2, 16, False, 5, (9, 21)), (3, 2, 16, True, 2, (37, 101)),
+@pytest.mark.parametrize("radius,m,d,integer,c,hw,p", [
+    (4, 8, 16, False, 3, (9, 21), 4), (4, 8, 16, True, 3, (9, 21), 4), (0, 2, 16, False, 3, (9, 21), 4),
+    (1, 2, 16, False, 3, (9, 21), 4), (8, 2, 16, False, 3, (9, 21), 4), (12, 2, 16, False, 3, (9, 21), 4),
+    (16, 2, 16, False, 3, (9, 21), 4), (2, 3, 21, False, 3, (9, 21), 4), (4, 2, 8, False, 3, (9, 21), 4),
+    (4, 2, 32, False, 3, (9, 21), 4), (4, 2, 5, False, 3, (9, 21), 4), (4, 2, 16, False, 3, (37, 101), 4),
+    (4, 2, 16, False, 5, (9, 21), 4), (3, 2, 16, True, 2, (37, 101), 4), (4, 2, 16, False, 3, (9, 21), 3),
+    (2, 2, 5, True, 2, (9, 21), 3), (4, 1, 1024, False, 3, (9, 21), 4),
 ])
-def test_bwd_kernel_matches_plain_on_card(radius, m, d, integer, c, hw, rng, cuda_device):
+def test_bwd_kernel_matches_plain_on_card(radius, m, d, integer, c, hw, p, rng, cuda_device):
     """B2 vs the plain backward on the same bf16 value (L=3 levels, ``c``
-    cameras): f32 sums of a few hundred terms in another order, cotangents of
-    order 1-10 -> atol 1e-4 of max(1, max|ref|). Exactly integer offsets give
-    exactly zero offset cotangents; two launches are bitwise equal, and so
-    are the value side and the query side launched alone. D=21 and D=32 take
-    two channel chunks on the value side, D=5 and D=8 part of one; 37x101 is
-    no multiple of the value tile."""
-    l, p = 3, 4
+    cameras, ``p`` points): f32 sums of a few hundred terms in another order,
+    cotangents of order 1-10 -> atol 1e-4 of max(1, max|ref|). Exactly
+    integer offsets give exactly zero offset cotangents; two launches are
+    bitwise equal, and so are the value side and the query side launched
+    alone. D=21 and D=32 take two channel chunks on the value side, D=5 and
+    D=8 part of one; on the query side D=16 and D=32 combine 2 and 4 lanes by
+    shuffles, D=5, D=21 (1-channel loads) and M=1, D=1024 (128 lanes over
+    four warps) through shared memory, and P=3 takes the generic sample loop;
+    37x101 is no multiple of either tile."""
+    l = 3
     h, wd = hw
     value, off, wgt = windowed_inputs(rng, 2, l, h, wd, m, d, p, c, -radius - 1.5, radius + 1.5)
     if integer:

@@ -153,6 +153,7 @@ def test_fwd_plan_admits_the_kernels_shapes(w, m, d, p, radius, align, vec, tile
     (dict(w=180, m=8, d=16, p=-1, radius=4), "non-negative"),
     (dict(w=2**20, m=8, d=128, p=4, radius=16), "32-bit"),
     (dict(w=180, m=8, d=128, p=4, radius=100_000), "32-bit"),
+    (dict(w=2**14, m=8, d=128, p=4, radius=63), "32-bit"),  # B2's byte offsets: 2 (R+1)(W+1)K just reaches 2^31
 ])
 def test_fwd_plan_raises_on_what_the_kernel_cannot_take(kwargs, match):
     with pytest.raises(ValueError, match=match):

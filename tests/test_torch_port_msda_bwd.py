@@ -42,9 +42,9 @@ def _cotangent(rng, off):
     return rng.standard_normal((b, c, h, w, m * d)).astype(np.float32)
 
 
-def _pallas_bwd(value, off, wgt, g, radius):
+def _pallas_bwd(value, off, wgt, g, radius, kernel_dtype=jnp.float32):
     out = msda_windowed_pallas_bwd(jnp.asarray(value), jnp.asarray(off), jnp.asarray(wgt), jnp.asarray(g), radius,
-                                   kernel_dtype=jnp.float32, interpret=True)
+                                   kernel_dtype=kernel_dtype, interpret=True)
     return [np.asarray(x) for x in out]
 
 
@@ -135,6 +135,25 @@ def test_plain_bwd_matches_pallas_at_the_card_cases(radius, m, d, c, h, w, rng):
     value, off, wgt = windowed_inputs(rng, 1, l, h, w, m, d, p, c, -radius - 1.5, radius + 1.5)
     g = rng.standard_normal((1, c, h, w, m * d)).astype(np.float32)
     _assert_all_close(_port_bwd(value, off, wgt, g, radius), _pallas_bwd(value, off, wgt, g, radius))
+
+
+def test_plain_bwd_against_pallas_at_its_bf16_kernel_dtype():
+    """At its default ``kernel_dtype=bf16`` the Pallas backward rounds g and
+    the products v*g to bf16 on the query side (`msda_kernel_bwd.py:77,117`);
+    the port keeps f32 products (ROADMAP C.3), as Pallas at f32 does. On a
+    bf16 value (the inputs of that record, numpy seed 0) the query-side
+    cotangents then differ by ~1.4e-3 (g_offsets) and ~2.2e-3 (g_weights) of
+    their scale -> 5e-3 of scale; g_value is f32 products on both sides ->
+    ATOL."""
+    rng = np.random.default_rng(0)
+    value, off, wgt = windowed_inputs(rng, 1, 3, 6, 20, 8, 16, 4, 3, -5.0, 5.0)
+    value = torch.from_numpy(value).to(torch.bfloat16).float().numpy()
+    g = _cotangent(rng, off)
+    ours = _port_bwd(value, off, wgt, g, 4)
+    pallas = _pallas_bwd(value, off, wgt, g, 4, kernel_dtype=jnp.bfloat16)
+    np.testing.assert_allclose(ours[0], pallas[0], rtol=0, atol=ATOL)
+    for a, b in zip(ours[1:], pallas[1:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=5e-3 * float(np.abs(b).max()))
 
 
 def test_xla_and_pallas_disagree_at_integer_offsets(rng):

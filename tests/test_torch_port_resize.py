@@ -7,7 +7,8 @@ Shapes: the flagship's 60x180 -> 120x360 with narrow channels, a ratio that
 is not 2 (7x11 -> 13x21, as odd world shapes give), and a downsample (JAX's
 default antialias widens the kernel there). f32 on both sides: each output is
 a sum of at most a few products in another order, so atol = 1e-6 of
-max(1, max|ref|)."""
+max(1, max|ref|). In bf16 the two round at other places (ROADMAP C.2), and
+the bound is one bf16 ulp of the output scale."""
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,20 @@ def _close(ours, ref):
 def test_resize_matches_jax_image_resize(in_hw, out_hw):
     x = np.random.default_rng(0).standard_normal((2, 3, *in_hw)).astype(np.float32)
     _close(_resize_bilinear(torch.from_numpy(x), out_hw), _jax_resize(jnp.asarray(x), out_hw))
+
+
+@pytest.mark.parametrize("in_hw,out_hw", SHAPES)
+def test_resize_matches_jax_image_resize_bf16(in_hw, out_hw):
+    """The port multiplies in f32 and rounds once; ``jax.image.resize`` also
+    rounds its weights and its first contraction to bf16. About a third of
+    the outputs differ, each by at most one bf16 ulp of the output scale."""
+    x = np.random.default_rng(0).standard_normal((2, 3, *in_hw)).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ours = _resize_bilinear(xt, out_hw)
+    ref = np.asarray(_jax_resize(jnp.asarray(xt.float().numpy(), jnp.bfloat16), out_hw).astype(jnp.float32))
+    assert ours.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7)  # bf16 keeps 8 significant bits
+    np.testing.assert_allclose(ours.float().numpy(), ref, rtol=0, atol=ulp)
 
 
 @pytest.mark.parametrize("in_hw,out_hw", SHAPES)
