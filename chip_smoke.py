@@ -23,9 +23,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    side's plan;
 4. B3, the warp backward, against its plain version at the flagship shape
    (g [14, 43200, 128] bf16 at the coordinates of the bench rig's homographies
-   with non-identity augmentation affines) and a narrow f32 shape; bitwise
-   repeat; ``grad_input`` of ``aten.grid_sampler_2d_backward`` timed beside it;
-   kernels and plain versions timed with CUDA events;
+   with non-identity augmentation affines; its segment statistics printed),
+   a narrow f32 shape and the stress cases of ``warp_stress_cases`` (one
+   cell of thousands of entries, segments around the walk's batches, every
+   tap outside, NaN and +-1e6 coordinates, C=5 and 40 in f32 and 300 in
+   bf16, a sort whose sentinel takes its top bit, a misaligned g); bitwise
+   repeat; ``grad_input`` of ``aten.grid_sampler_2d_backward`` timed beside
+   it; kernels and plain versions timed with CUDA events;
 5. B5, the lane broadcast / reduce experiment: each of its six variants
    against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
    the largest output), the variants against each other (``repeat`` tiles,
@@ -49,7 +53,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    same state and generator give bitwise-equal parameters and gradients
    with PyTorch's default algorithms (required), and with
    ``torch.use_deterministic_algorithms`` (reported, with both step times);
-9. one JSON line with each kernel's launches, error, times and bound.
+9. B3's device time at the flagship by stage and by device activity, from
+   torch.profiler after the serve and train profiles: all but one memset of
+   its sort must be kernels named ``warp_bwd``, and B3's share of the step
+   is those kernels in the step profile plus that memset;
+10. one JSON line with each kernel's launches, error, times and bound.
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -290,9 +298,14 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
     return rec
 
 
-def warp_case(name, g, sx, sy, h, w, bev_hw=None):
-    """B3 vs the plain version on the card; timed when the samples' BEV grid
-    ``bev_hw`` is given. Returns a record."""
+def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None):
+    """B3 vs the plain version on the card (bitwise equal to it when
+    ``exact``: every partial sum of the case is exact in f32); timed when the
+    samples' BEV grid ``bev_hw`` is given. ``ref_xy``: the coordinates the
+    plain version takes instead of ``sx, sy``, on which B3 must give the same
+    bits (NaN replaced by a coordinate that matches no cell: the dense
+    one-hot product turns 0 * NaN into NaN, the kernel matches no cell).
+    Returns a record."""
     import torch
 
     from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
@@ -300,7 +313,9 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None):
 
     out = warp_bwd(g, sx, sy, h, w)
     again = warp_bwd(g, sx, sy, h, w)
-    ref = bilinear_scatter_matmul(g, sx, sy, h, w)
+    if ref_xy is not None:
+        check(torch.equal(out, warp_bwd(g, *ref_xy, h, w)), f"B3 {name}: NaN coordinates do not vanish")
+    ref = bilinear_scatter_matmul(g, *(ref_xy or (sx, sy)), h, w)
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
@@ -308,10 +323,12 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None):
     worst = float((diff - rtol * ref.float().abs()).max())
     print(f"B3 {name}: g {tuple(g.shape)} {g.dtype} -> {tuple(out.shape)}, max_abs_err={err:.3e} "
           f"(max |ref| {float(ref.float().abs().max()):.3f}), taps inside the map "
-          f"{float(((sx >= -1) & (sx <= w) & (sy >= -1) & (sy <= h)).float().mean()):.3f}, bitwise repeat")
+          f"{float(((sx >= -1) & (sx <= w) & (sy >= -1) & (sy <= h)).float().mean()):.3f}, bitwise repeat"
+          + (", bitwise equal to the plain version" if exact else ""))
     check(bool(torch.isfinite(out).all()), f"B3 {name}: non-finite output")
     check(worst <= 1e-5, f"B3 {name}: error {err} beyond rtol {rtol} + 1e-5")
     check(torch.equal(out, again), f"B3 {name}: two launches differ")
+    check(not exact or torch.equal(out, ref), f"B3 {name}: not bitwise equal to the plain version")
     rec = {"err": err}
     if bev_hw is not None:
         nbytes = (g.numel() + out.numel()) * g.element_size() + (sx.numel() + sy.numel()) * 4
@@ -323,6 +340,153 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None):
               f"({lib_dtype}) {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
               f"{nbytes / 1e6:.1f} MB)")
     return rec
+
+
+def warp_flagship_inputs(rng, rig=None, batch=None, device="cuda") -> dict:
+    """B3's inputs on the main path: the source coordinates of the bench
+    rig's homographies under the train batch's augmentation affines (the
+    batch of ``train_batch(rig, 2, ..., seed=0)`` unless given), and g
+    [14, 43200, 128] bf16 from ``rng``, on the card by default."""
+    import torch
+
+    from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.ops.warp import warp_coords
+
+    rig = bench_rig() if rig is None else rig
+    batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0) if batch is None else batch
+    geo = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, device=device)  # the path's homographies
+    mats = geo.warp_mats(torch.from_numpy(batch["affine_mats"]).to(device), (90, 160))
+    sx, sy = warp_coords(mats, geo.Rworld_shape)
+    g = torch.from_numpy(rng.standard_normal((14, sx.shape[1], 128), dtype=np.float32)).to(device, torch.bfloat16)
+    return {"g": g, "sx": sx.contiguous(), "sy": sy.contiguous(), "h": 90, "w": 160, "bev_hw": geo.Rworld_shape}
+
+
+WARP_STRESS_NAMES = ("one-cell", "segment-lengths", "all-outside", "nan-far", "C5-f32", "C40-f32", "C300-bf16",
+                     "sentinel-top-bit", "misaligned")
+
+
+def warp_stress_cases(rng, device="cuda") -> dict:
+    """B3's stress cases (on the card by default): name -> ``g, sx, sy, h,
+    w``, ``exact`` (every partial sum exact in f32, so the kernel must equal
+    the plain version bitwise) and ``ref_xy`` (coordinates for the plain
+    version, or None: see :func:`warp_case`)."""
+    import torch
+
+    def case(g, sx, sy, h, w, dtype=torch.bfloat16, exact=False):
+        f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)  # noqa: E731
+        return {"g": f32(g).to(dtype), "sx": f32(sx), "sy": f32(sy), "h": h, "w": w, "exact": exact, "ref_xy": None}
+
+    def uniform(b, q, h, w):
+        return rng.uniform(-2.0, w + 1.0, (b, q)), rng.uniform(-2.0, h + 1.0, (b, q))
+
+    cases = {}
+    # every query on one cell: four segments of 3000 entries; g small integers
+    # and fractions k/16, so every term and partial sum is exact
+    q = 3000
+    cases["one-cell"] = case(rng.integers(-8, 9, (1, q, 128)), 6 + rng.integers(0, 16, (1, q)) / 16,
+                             4 + rng.integers(0, 16, (1, q)) / 16, 11, 17, exact=True)
+    # segment lengths around the walk's batch (32) and its loads in flight (4):
+    # group i puts n_i queries on the 2x2 cells at (1 + 3*(i // 6), 1 + 3*(i % 6)),
+    # in a shuffled query order
+    lengths = (1, 3, 4, 5, 7, 8, 9, 31, 32, 33, 63, 64, 65, 97)
+    base = np.repeat([(1 + 3 * (i // 6), 1 + 3 * (i % 6)) for i in range(len(lengths))], lengths, axis=0)
+    perm = np.stack([rng.permutation(len(base)) for _ in range(2)])
+    frac = rng.uniform(0.0, 0.999, (2, len(base), 2))
+    cases["segment-lengths"] = case(rng.standard_normal((2, len(base), 128)), base[perm, 1] + frac[..., 0],
+                                    base[perm, 0] + frac[..., 1], 10, 19)
+    # every tap outside: left of column -1 or right of the last column
+    q = 900
+    sx = np.where(rng.random((2, q)) < 0.5, rng.uniform(-40.0, -2.0, (2, q)), rng.uniform(17.0, 60.0, (2, q)))
+    cases["all-outside"] = case(rng.standard_normal((2, q, 128)), sx, rng.uniform(-2.0, 12.0, (2, q)), 11, 17)
+    # NaN and +-1e6 coordinates among ordinary ones
+    sx, sy = uniform(2, q, 11, 17)
+    pick = rng.integers(0, 5, (2, q))
+    sx = np.where(pick == 0, np.nan, np.where(pick == 1, 1e6, sx))
+    sy = np.where(pick == 2, np.nan, np.where(pick == 3, -1e6, sy))
+    nan_far = case(rng.standard_normal((2, q, 128)), sx, sy, 11, 17)
+    nan_far["ref_xy"] = (torch.nan_to_num(nan_far["sx"], nan=-1e6), torch.nan_to_num(nan_far["sy"], nan=-1e6))
+    cases["nan-far"] = nan_far
+    # channel counts: scalar lanes (C=5), a partial vector pass (C=40), three passes (C=300)
+    cases["C5-f32"] = case(rng.standard_normal((3, 700, 5)), *uniform(3, 700, 11, 17), 11, 17, dtype=torch.float32)
+    cases["C40-f32"] = case(rng.standard_normal((3, 700, 40)), *uniform(3, 700, 11, 17), 11, 17,
+                            dtype=torch.float32)
+    cases["C300-bf16"] = case(rng.standard_normal((2, 500, 300)), *uniform(2, 500, 9, 13), 9, 13)
+    # B*H*W = 1024: the sentinel 1024 is the top bit of an 11-bit sort
+    cases["sentinel-top-bit"] = case(rng.standard_normal((2, 1200, 64)), *uniform(2, 1200, 16, 32), 16, 32)
+    # g at a 2-byte offset: contiguous but not 8-byte aligned, so the lanes load scalars
+    misaligned = case(rng.standard_normal((2 * 600 * 128 + 1,)), *uniform(2, 600, 11, 17), 11, 17)
+    misaligned["g"] = misaligned["g"][1:].view(2, 600, 128)
+    cases["misaligned"] = misaligned
+    check(tuple(cases) == WARP_STRESS_NAMES, f"B3 stress cases {tuple(cases)} are not WARP_STRESS_NAMES")
+    return cases
+
+
+def warp_segment_stats(sx, sy, h, w) -> dict:
+    """Entries per destination cell of B3 at these coordinates, counted with
+    plain tensor operations: cells, non-empty cells, taps inside, mean and
+    largest segment over the non-empty cells."""
+    import torch
+
+    b = sx.shape[0]
+    counts = torch.zeros(b * h * w, dtype=torch.int64, device=sx.device)
+    bidx = torch.arange(b, device=sx.device)[:, None]
+    for ty in (0, 1):
+        for tx in (0, 1):
+            xx, yy = torch.floor(sx) + tx, torch.floor(sy) + ty
+            inside = (xx >= 0) & (xx <= w - 1) & (yy >= 0) & (yy <= h - 1)
+            key = (bidx * h + yy.clamp(0, h - 1).long()) * w + xx.clamp(0, w - 1).long()
+            counts += torch.bincount(key[inside], minlength=b * h * w)
+    seg = counts[counts > 0].double()
+    return {"cells": b * h * w, "nonempty": int(seg.numel()), "entries_inside": int(counts.sum()),
+            "entries": 4 * sx.numel(), "mean": float(seg.mean()), "p90": float(seg.quantile(0.9)),
+            "p99": float(seg.quantile(0.99)), "max": int(seg.max())}
+
+
+def device_activities(prof) -> list:
+    """The device activities of a torch.profiler run, summed by name:
+    kernels, memsets and copies."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")]
+
+
+MEMSET = "Memset (Device)"  # torch.profiler's name for a cudaMemsetAsync on the card
+# a B3 stage's kernels by a part of their names; the sort is all else a call runs (CUB's kernels and memset)
+WARP_STAGE_KERNELS = (("keys_kernel", "keys"), ("starts_kernel", "starts"), ("gather_kernel", "gather"))
+
+
+def warp_stage_ms(fn, reps: int = 10) -> dict:
+    """Device time of one B3 call ``fn`` by stage (keys, sort, starts,
+    gather; a source with no starts pass has none), the mean over ``reps``
+    calls traced by torch.profiler after a warm-up, and ``"all"``, their sum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    stages: dict[str, float] = {}
+    for e in device_activities(prof):
+        stage = next((s for part, s in WARP_STAGE_KERNELS if part in e.key), "sort")
+        stages[stage] = stages.get(stage, 0.0) + e.self_device_time_total / 1e3 / reps
+    stages["all"] = sum(stages.values())
+    return stages
+
+
+def profile_call(fn):
+    """A torch.profiler run of one call of ``fn`` after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
 
 
 def grid_sampler_backward_ms(g, sx, sy, h, w, bev_hw):
@@ -345,6 +509,65 @@ def grid_sampler_backward_ms(g, sx, sy, h, w, bev_hw):
         except RuntimeError as e:  # a dtype the library call does not take: time it in f32
             print(f"B3: grid_sampler_2d_backward refuses {dt}: {str(e)[:120]}")
     raise RuntimeError("chip_smoke: grid_sampler_2d_backward ran in no dtype")
+
+
+def warp_phase(rng, rig, batch) -> dict:
+    """B3 at the flagship (timed, with its segments), at a narrow f32 shape
+    and at the stress cases. Returns a record."""
+    import torch
+
+    from mvdetr_tpu_torch.ops import warp
+    from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    flag = warp_flagship_inputs(rng, rig, batch)
+    g, sx, sy, h, w = (flag[k] for k in ("g", "sx", "sy", "h", "w"))
+    seg = warp_segment_stats(sx, sy, h, w)
+    print(f"B3 flagship segments: {seg['nonempty']} of {seg['cells']} cells get a tap, {seg['entries_inside']} of "
+          f"{seg['entries']} entries inside; entries per non-empty cell mean {seg['mean']:.2f}, p90 "
+          f"{seg['p90']:.0f}, p99 {seg['p99']:.0f}, largest {seg['max']}")
+    b3 = warp_case("flagship", g, sx, sy, h, w, bev_hw=flag["bev_hw"])
+    b3["segments"] = seg
+    small = torch.from_numpy(rng.standard_normal((3, 700, 40), dtype=np.float32)).cuda()
+    nx = torch.from_numpy(rng.uniform(-2.0, 18.0, (3, 700)).astype(np.float32)).cuda()
+    ny = torch.from_numpy(rng.uniform(-2.0, 12.0, (3, 700)).astype(np.float32)).cuda()
+    b3["errs"] = [b3["err"], warp_case("narrow-f32", small, nx, ny, 11, 17)["err"]]
+    for name, c in warp_stress_cases(rng).items():
+        b3["errs"].append(warp_case(name, c["g"], c["sx"], c["sy"], c["h"], c["w"], exact=c["exact"],
+                                    ref_xy=c["ref_xy"])["err"])
+    del flag, g, small
+    torch.cuda.empty_cache()
+    return b3
+
+
+def warp_profile(b3, rig, batch, step_warp_kernels_ms: float) -> None:
+    """B3's device time at the flagship coordinates by stage and by device
+    activity, and its share of the train step: the step profile's kernels
+    named warp_bwd (CUB's are in the namespace warp_bwd_cub) and the one
+    memset of CUB's sort, measured here, since the step's memsets share one
+    name. Run after the serve and train profiles: in this process a
+    torch.profiler run before them left the pageable upload out of the serve
+    profile."""
+    import torch
+
+    from mvdetr_tpu_torch.ops import warp
+    from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    flag = warp_flagship_inputs(np.random.default_rng(0), rig, batch)
+    call = lambda: warp_bwd(*(flag[k] for k in ("g", "sx", "sy", "h", "w")))  # noqa: E731
+    b3["device_ms"] = warp_stage_ms(call)
+    acts = device_activities(profile_call(call))
+    print("B3 flagship device time by stage: " + ", ".join(f"{k} {v:.4f} ms" for k, v in b3["device_ms"].items())
+          + f"; one call's {len(acts)} device activities:")
+    for e in sorted(acts, key=lambda e: -e.self_device_time_total):
+        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {e.key[:140]}")
+    others = {e.key for e in acts if warp.KERNEL_NAME not in e.key}
+    check(others <= {MEMSET}, f"B3: device activities {others} are neither warp_bwd kernels nor a memset")
+    b3["memset_ms"] = sum(e.self_device_time_total for e in acts if e.key == MEMSET) / 1e3
+    b3["step_ms"] = step_warp_kernels_ms + b3["memset_ms"]
+    print(f"train profile: B3 in the step {b3['step_ms']:.3f} ms: its kernels {step_warp_kernels_ms:.3f} ms and its "
+          f"sort's memset {b3['memset_ms']:.4f} ms (one launch a step; the memset from B3's own profile)")
+    del flag
+    torch.cuda.empty_cache()
 
 
 def lane_phase() -> dict:
@@ -485,16 +708,15 @@ def small_model_card_vs_cpu() -> None:
 
 def profile_table(label, fn, wall_ms, names):
     """Device time of one call of ``fn`` by kernel, from torch.profiler;
-    ``names`` maps a label to the substrings of its device kernels' names."""
+    ``names`` maps a label to the substrings of its device kernels' names.
+    Returns the device time of each label."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and not e.key.startswith("Activity Buffer")]
+    kernels = device_activities(prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     ours = {n: sum(e.self_device_time_total for e in kernels if any(k in e.key for k in keys)) / 1e3
             for n, keys in names.items()}
@@ -502,6 +724,7 @@ def profile_table(label, fn, wall_ms, names):
           f"which " + ", ".join(f"{n} {t:.3f} ms" for n, t in ours.items()) + "; top device activities:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  {e.key[:110]}")
+    return ours
 
 
 def serve_full_width(rig):
@@ -548,7 +771,8 @@ def serve_full_width(rig):
 
 
 def train_full_width(rig, batch):
-    """Returns the launch counts of the counted run, by kernel name."""
+    """Returns the launch counts of the counted run, by kernel name, and the
+    step profile's device time by kernel label."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
@@ -589,9 +813,9 @@ def train_full_width(rig, batch):
           f"peak memory {peak:.2f} GiB")
     print(f"train: losses {[round(v, 5) for v in losses]}, last step "
           + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches} in {steps} steps")
-    profile_table("train", lambda: train_step(state, batch, gen), med,
-                  {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "msda_windowed_bwd": ("msda_bwd_",),
-                   "warp_bwd": ("warp_bwd_",)})
+    ours = profile_table("train", lambda: train_step(state, batch, gen), med,
+                         {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "msda_windowed_bwd": ("msda_bwd_",),
+                          "warp_bwd": ("warp_bwd",)})  # B3's four stages, CUB's sort kernels among them
 
     # two steps from the same state and generator, with PyTorch's default
     # algorithms (must be bitwise equal) and with deterministic ones (reported)
@@ -626,7 +850,7 @@ def train_full_width(rig, batch):
               f"{len(a[0])} parameter leaves and {len(grads_differ)} gradient leaves differ, the last in forward "
               f"order {grads_differ[::-1][:6]}; step {a[3]:.1f} and {b[3]:.1f} ms; warnings {a[4] + b[4]}")
     check(verdict["default algorithms"], "train: two steps with PyTorch's default algorithms are not bitwise equal")
-    return launches
+    return launches, ours
 
 
 def main() -> int:
@@ -637,7 +861,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from mvdetr_tpu_torch.ops import kernel_build, lane_broadcast, msda_windowed, warp
-    from mvdetr_tpu_torch.ops.warp import warp_coords
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -691,34 +914,21 @@ def main() -> int:
 
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
-    from mvdetr_tpu_torch.models import MVDeTr
-
-    geo = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, device="cuda")  # the path's homographies
-    mats = geo.warp_mats(torch.from_numpy(batch["affine_mats"]).cuda(), (90, 160))
-    geo_bev = geo.Rworld_shape
-    sx, sy = warp_coords(mats, geo_bev)
-    del geo
-    g = torch.from_numpy(rng.standard_normal((14, sx.shape[1], 128), dtype=np.float32)).cuda().to(torch.bfloat16)
-    b3 = warp_case("flagship", g, sx.contiguous(), sy.contiguous(), 90, 160, bev_hw=geo_bev)
-    small = torch.from_numpy(rng.standard_normal((3, 700, 40), dtype=np.float32)).cuda()
-    nx = torch.from_numpy(rng.uniform(-2.0, 18.0, (3, 700)).astype(np.float32)).cuda()
-    ny = torch.from_numpy(rng.uniform(-2.0, 12.0, (3, 700)).astype(np.float32)).cuda()
-    b3_errs = [b3["err"], warp_case("narrow-f32", small, nx, ny, 11, 17)["err"]]
-    del g, small
-    torch.cuda.empty_cache()
+    b3 = warp_phase(rng, rig, batch)
     b5 = lane_phase()
 
     small_model_card_vs_cpu()
     serve_launches = serve_full_width(rig)
     torch.cuda.empty_cache()
-    train_launches = train_full_width(rig, batch)
+    train_launches, step_profile = train_full_width(rig, batch)
+    warp_profile(b3, rig, batch, step_profile[warp.KERNEL_NAME])
 
     records = [
         (msda_windowed.KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel.py:95", b1, b1_errs,
          {"serve": serve_launches, "train": train_launches[msda_windowed.KERNEL_NAME]}),
         (msda_windowed.BWD_KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel_bwd.py:43", b2, b2_errs,
          {"train": train_launches[msda_windowed.BWD_KERNEL_NAME]}),
-        (warp.KERNEL_NAME, "mvdetr_tpu/ops/pallas/warp_bwd.py:43", b3, b3_errs,
+        (warp.KERNEL_NAME, "mvdetr_tpu/ops/pallas/warp_bwd.py:43", b3, b3["errs"],
          {"train": train_launches[warp.KERNEL_NAME]}),
     ]
     rows = [{
@@ -740,6 +950,8 @@ def main() -> int:
     # B2: its two sides, each beside its bound, the times at integer offsets and the query side's at R=16
     rows[1].update({k: b2[k] for k in ("value_ms", "query_ms", "value_bound_ms", "query_bound_ms", "ms_integer",
                                        "value_ms_integer", "query_ms_integer", "query_ms_R16")})
+    # B3: its device time by stage, the flagship's segments
+    rows[2].update({k: b3[k] for k in ("device_ms", "memset_ms", "step_ms", "segments")})
     # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
     tile, big = sorted(b5["matmul"]["by_T"])
     rows += [{

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -73,20 +74,92 @@ def warp_coords(mats: torch.Tensor, out_shape):
     return src[..., 0] / z, src[..., 1] / z
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the warp-backward kernel's shared library."""
-    lib = ctypes.CDLL(str(kernel_build.build(KERNEL_NAME)))
-    lib.warp_bwd_keys_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.warp_bwd_keys_launch.restype = ctypes.c_int
-    lib.warp_bwd_gather_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.warp_bwd_gather_launch.restype = ctypes.c_int
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a build of ``csrc/warp_bwd.cu``."""
+    lib.warp_bwd_temp_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_size_t)]
+    lib.warp_bwd_temp_bytes.restype = ctypes.c_int
+    lib.warp_bwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_size_t] + [ctypes.c_int] * 7
+                                    + [ctypes.c_void_p])
+    lib.warp_bwd_launch.restype = ctypes.c_int
     lib.warp_bwd_error_string.argtypes = [ctypes.c_int]
     lib.warp_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the warp-backward kernel's shared library."""
+    return bind(ctypes.CDLL(str(kernel_build.build(KERNEL_NAME))))
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32_LIMIT = 2**31 - 1
+
+
+def sort_end_bit(num_cells: int) -> int:
+    """Bits of B3's sort keys: the cells ``0 .. num_cells - 1`` and the
+    sentinel ``num_cells`` of a tap outside the map."""
+    return max(1, int(num_cells).bit_length())
+
+
+class Scratch(NamedTuple):
+    """B3's buffers between its stages: keys and entry indices before and
+    after the sort, segment starts, the sort's temporary storage."""
+
+    keys: torch.Tensor  # [2, 4*B*Q] int32 (unsigned in the kernel): unsorted, sorted
+    order: torch.Tensor  # [2, 4*B*Q] int32
+    start: torch.Tensor  # [B*h*w + 1] int32
+    temp: torch.Tensor  # uint8, the sort's temporary storage
+    end_bit: int
+
+
+def check_sizes(b: int, q: int, h: int, w: int) -> None:
+    """Raise unless entries ``4*B*Q`` and cells ``B*h*w`` (with the sentinel)
+    fit the kernel's int32 indices."""
+    if 4 * b * q >= _INT32_LIMIT or b * h * w >= _INT32_LIMIT:
+        raise ValueError(f"warp_bwd: 4*B*Q = {4 * b * q} and B*h*w = {b * h * w} must be below 2^31 - 1, the "
+                         "kernel's int32 indices")
+
+
+@functools.lru_cache(maxsize=64)
+def _temp_bytes(lib: ctypes.CDLL, n: int, end_bit: int, device: torch.device) -> int:
+    nbytes = ctypes.c_size_t(0)
+    with torch.cuda.device(device):
+        _raise_on(lib, lib.warp_bwd_temp_bytes(n, end_bit, ctypes.byref(nbytes)))
+    return nbytes.value
+
+
+def alloc_scratch(lib: ctypes.CDLL, b: int, q: int, h: int, w: int, device) -> Scratch:
+    """Scratch for ``lib``'s B3 on ``B`` views of ``Q`` samples onto
+    ``h x w``; the sort's temporary bytes come from ``warp_bwd_temp_bytes``."""
+    check_sizes(b, q, h, w)
+    n, end_bit = 4 * b * q, sort_end_bit(b * h * w)
+    device = torch.device(device)
+    return Scratch(keys=torch.empty((2, n), dtype=torch.int32, device=device),
+                   order=torch.empty((2, n), dtype=torch.int32, device=device),
+                   start=torch.empty(b * h * w + 1, dtype=torch.int32, device=device),
+                   temp=torch.empty(_temp_bytes(lib, n, end_bit, device), dtype=torch.uint8, device=device),
+                   end_bit=end_bit)
+
+
+def launch(lib: ctypes.CDLL, g, sx, sy, out, scratch: Scratch) -> None:
+    """Run ``lib``'s B3 on checked inputs into ``out [B, h, w, C]``, on the
+    current stream of ``g``'s device; raises on a CUDA error."""
+    b, q, c = g.shape
+    _, h, w, _ = out.shape
+    s = scratch
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        _raise_on(lib, lib.warp_bwd_launch(
+            g.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(), s.keys[0].data_ptr(), s.keys[1].data_ptr(),
+            s.order[0].data_ptr(), s.order[1].data_ptr(), s.start.data_ptr(), s.temp.data_ptr(), s.temp.numel(),
+            b, q, h, w, c, _DTYPE_CODES[g.dtype], s.end_bit, stream))
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        msg = lib.warp_bwd_error_string(err).decode()
+        raise RuntimeError(f"warp_bwd launch failed: {msg} (cudaError {err})")
 
 
 def warp_bwd(g: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -94,11 +167,10 @@ def warp_bwd(g: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, h: int, w: int
     coordinates ``sx/sy [B, Q]``, contiguous on one CUDA device ->
     ``grad [B, h, w, C]`` in ``g.dtype``.
 
-    The destination keys are computed by the kernel's first pass and ordered
-    with a stable ``torch.sort`` (index plumbing); the second pass sums each
-    destination cell's taps in query order. Raises on any input the kernel
-    does not take; never computes on another path. Adds one to
-    ``warp_bwd.launches`` per launch."""
+    The kernel's stages key each (query, tap) by its destination cell, sort
+    the keys (index plumbing), find each cell's segment and sum the cell's
+    taps in query order. Raises on any input the kernel does not take; never
+    computes on another path. Adds one to ``warp_bwd.launches`` per launch."""
     if g.device.type != "cuda":
         raise ValueError(f"warp_bwd runs on a CUDA device only, got g on {g.device}")
     if g.dtype not in _DTYPE_CODES:
@@ -112,25 +184,11 @@ def warp_bwd(g: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, h: int, w: int
     if not (g.is_contiguous() and sx.is_contiguous() and sy.is_contiguous()):
         raise ValueError("warp_bwd: inputs must be contiguous")
     b, q, c = g.shape
-    if b * h * w >= 2**31 - 1:
-        raise ValueError(f"warp_bwd: B*h*w = {b * h * w} does not fit the kernel's int32 keys")
     out = torch.empty((b, h, w, c), dtype=g.dtype, device=g.device)
     if out.numel() == 0:
         return out
     lib = load_library()
-    keys = torch.empty(4 * b * q, dtype=torch.int32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.warp_bwd_keys_launch(sx.data_ptr(), sy.data_ptr(), keys.data_ptr(), b, q, h, w, stream)
-        if err == 0:
-            sorted_keys, order = torch.sort(keys, stable=True)
-            err = lib.warp_bwd_gather_launch(
-                g.data_ptr(), sx.data_ptr(), sy.data_ptr(), sorted_keys.data_ptr(), order.data_ptr(),
-                out.data_ptr(), b, q, h, w, c, _DTYPE_CODES[g.dtype], stream,
-            )
-    if err != 0:
-        msg = lib.warp_bwd_error_string(err).decode()
-        raise RuntimeError(f"warp_bwd launch failed: {msg} (cudaError {err})")
+    launch(lib, g, sx, sy, out, alloc_scratch(lib, b, q, h, w, g.device))
     warp_bwd.launches += 1
     return out
 

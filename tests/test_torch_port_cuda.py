@@ -20,9 +20,11 @@ from mvdetr_tpu_torch.ops.msda_windowed import (
     windowed_attention,
 )
 from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
+from mvdetr_tpu_torch.ops import warp as warp_ops
 from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
+from chip_smoke import WARP_STRESS_NAMES, warp_case, warp_stress_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -148,6 +150,44 @@ def test_warp_bwd_kernel_matches_plain_on_card(dtype, rng, cuda_device):
     assert ours.dtype == dtype and torch.equal(ours, again)
     rtol = 1.6e-2 if dtype == torch.bfloat16 else 0
     torch.testing.assert_close(ours.float(), ref.float(), rtol=rtol, atol=2e-5)
+
+
+@pytest.mark.parametrize("name", WARP_STRESS_NAMES)
+def test_warp_bwd_stress_cases_on_card(name, cuda_device):
+    """B3 at ``chip_smoke.warp_stress_cases`` through ``chip_smoke.warp_case``:
+    within rtol 2^-6 (bf16; 0 in f32) + 1e-5 of the plain version, two
+    launches bitwise equal, bitwise equal to the plain version where every
+    partial sum is exact (one cell of 3000 entries per tap), NaN coordinates
+    giving the bits of far-out ones; every tap outside gives zeros."""
+    case = warp_stress_cases(np.random.default_rng(0))[name]
+    before = warp_bwd.launches
+    warp_case(name, case["g"], case["sx"], case["sy"], case["h"], case["w"], exact=case["exact"],
+              ref_xy=case["ref_xy"])
+    assert warp_bwd.launches > before
+    if name == "all-outside":
+        assert not warp_bwd(case["g"], case["sx"], case["sy"], case["h"], case["w"]).any()
+
+
+def test_warp_bwd_scratch_on_card(rng, cuda_device):
+    """The wrapper's scratch: 18-bit keys at the flagship's 14 x 90 x 160
+    cells and CUB's temporary bytes; after a launch the keys are sorted and
+    end at most at the sentinel, and the output is the wrapper's."""
+    lib = warp_ops.load_library()
+    s = warp_ops.alloc_scratch(lib, 14, 300, 90, 160, cuda_device)
+    assert s.end_bit == 18 and s.keys.shape == (2, 4 * 14 * 300) and s.start.shape == (14 * 90 * 160 + 1,)
+    assert s.temp.numel() > 0
+    b, q, c, h, w = 2, 900, 24, 11, 17
+    sx = torch.from_numpy(rng.uniform(-2.0, w + 1.0, (b, q)).astype(np.float32)).to(cuda_device)
+    sy = torch.from_numpy(rng.uniform(-2.0, h + 1.0, (b, q)).astype(np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((b, q, c)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    out = torch.empty((b, h, w, c), dtype=g.dtype, device=cuda_device)
+    scratch = warp_ops.alloc_scratch(lib, b, q, h, w, cuda_device)
+    warp_ops.launch(lib, g, sx, sy, out, scratch)
+    torch.cuda.synchronize()
+    assert torch.equal(out, warp_bwd(g, sx, sy, h, w))
+    keys = scratch.keys[1]
+    assert bool((keys[1:] >= keys[:-1]).all()) and int(keys[-1]) <= b * h * w
+    assert int(scratch.start[0]) == 0 and int(scratch.start[-1]) == int((keys < b * h * w).sum())
 
 
 def test_backward_through_autograd_launches_the_kernel(rng, cuda_device):

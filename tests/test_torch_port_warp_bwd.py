@@ -17,10 +17,18 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import WARP_STRESS_NAMES, warp_stress_cases
 from mvdetr_tpu.ops.pallas.warp_bwd import warp_bwd_pallas
 from mvdetr_tpu.ops.sampling import bilinear_scatter_matmul as jax_scatter
 from mvdetr_tpu_torch.ops.sampling import bilinear_patch_sample, bilinear_scatter_matmul
-from mvdetr_tpu_torch.ops.warp import perspective_warp, warp_bwd, warp_coords, warp_scatter_accumulate
+from mvdetr_tpu_torch.ops.warp import (
+    check_sizes,
+    perspective_warp,
+    sort_end_bit,
+    warp_bwd,
+    warp_coords,
+    warp_scatter_accumulate,
+)
 
 BF16_RTOL = 2.0**-6
 
@@ -98,3 +106,49 @@ def test_dispatch_on_cpu_and_kernel_wrapper_refuses_cpu_tensors(rng):
     with pytest.raises(ValueError, match="CUDA device only"):
         warp_bwd(g, sx, sy, 5, 7)
     assert warp_bwd.launches == before
+
+
+@pytest.mark.parametrize("num_cells,bits", [(1, 1), (2, 2), (3, 2), (1023, 10), (1024, 11), (1025, 11),
+                                            (201600, 18), (2**31 - 2, 31)])
+def test_sort_end_bit_covers_the_sentinel(num_cells, bits):
+    """B3 sorts keys 0 .. B*H*W, the last the sentinel of a tap outside, over
+    the fewest bits that hold them: 18 at the flagship (14 x 90 x 160); at
+    B*H*W = 1024 the sentinel takes the top bit of 11."""
+    assert sort_end_bit(num_cells) == bits
+    assert num_cells >> bits == 0 and (bits == 1 or num_cells >> (bits - 1) == 1)
+
+
+def test_check_sizes_refuses_what_overflows_the_kernels_int32_indices():
+    check_sizes(14, 43200, 90, 160)  # the flagship
+    check_sizes(1, (2**31 - 2) // 4, 1, 1)
+    with pytest.raises(ValueError, match="2\\^31"):
+        check_sizes(1, (2**31 - 1 + 3) // 4, 1, 1)  # 4*B*Q entries
+    with pytest.raises(ValueError, match="2\\^31"):
+        check_sizes(2, 1, 2**15, 2**15)  # B*h*w cells
+
+
+@pytest.mark.parametrize("name", WARP_STRESS_NAMES)
+def test_plain_matches_jax_at_the_b3_stress_cases(name):
+    """The cases the card holds B3 to (``chip_smoke.warp_stress_cases``),
+    through the port's plain version and the JAX function on the CPU: one
+    cell of 3000 entries per tap (exact: bitwise equal), segments of 1-97
+    entries, every tap outside (zeros), NaN / +-1e6 coordinates (NaN taken
+    as a far-out coordinate, as the kernel takes it), C = 5, 40 in f32 and
+    300 in bf16, B*H*W = 1024, a g that starts 2 bytes into its storage.
+    Tolerances as in the tests above."""
+    case = warp_stress_cases(np.random.default_rng(0), device="cpu")[name]
+    g, h, w = case["g"], case["h"], case["w"]
+    sx, sy = case["ref_xy"] or (case["sx"], case["sy"])
+    ours = bilinear_scatter_matmul(g, sx, sy, h, w)
+    jd = jnp.bfloat16 if g.dtype == torch.bfloat16 else jnp.float32
+    ref = np.asarray(jax_scatter(jnp.asarray(g.float().numpy()).astype(jd), jnp.asarray(sx.numpy()),
+                                 jnp.asarray(sy.numpy()), h, w).astype(jnp.float32))
+    assert ours.shape == (g.shape[0], h, w, g.shape[2]) and torch.isfinite(ours).all()
+    if case["exact"]:
+        np.testing.assert_array_equal(ours.float().numpy(), ref)
+    elif g.dtype == torch.bfloat16:
+        np.testing.assert_allclose(ours.float().numpy(), ref, rtol=BF16_RTOL, atol=1e-6)
+    else:
+        np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-5)
+    if name == "all-outside":
+        assert not ours.any()
