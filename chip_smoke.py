@@ -6,13 +6,17 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. card name and power limit, torch and CUDA versions; build the four CUDA
    kernels from ``mvdetr_tpu_torch/csrc`` (one ``nvcc`` each, all started
-   together; timed) and print each build log;
+   together; timed) and print each build log; build the data path's host
+   library (``mvdetr_tpu_torch/native/dataio.cpp``, g++);
 2. B1, the windowed deformable-attention forward, against its plain PyTorch
    version on the card, two launches bitwise equal: at the flagship shape
    (random offsets past the clamp, and integer offsets; both timed), at
    narrow shapes (M*D=32 at R=0, 1, 8, 12 and 16; a 37x101 grid; D=8, 32
    and 5; 5 cameras over 3 levels), and, timed, at the flagship shape at
    R=16 (R=12 and 16 close B4, the TPU's large-radius variant);
+   B1 and B2 also at the shape the CLI recipe and the convergence rigs
+   launch them at (B=1, L=C=4, 15x30, random and integer offsets), after
+   B2's cases;
 3. B2, its backward, against the plain backward: at the flagship shape
    (random offsets past the clamp; the radial init shifted by integers, where
    exactly integer offsets must get exactly zero cotangents), both timed
@@ -27,8 +31,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    a narrow f32 shape and the stress cases of ``warp_stress_cases`` (one
    cell of thousands of entries, segments around the walk's batches, every
    tap outside, NaN and +-1e6 coordinates, C=5 and 40 in f32 and 300 in
-   bf16, a sort whose sentinel takes its top bit, a misaligned g); bitwise
-   repeat; ``grad_input`` of ``aten.grid_sampler_2d_backward`` timed beside
+   bf16, a sort whose sentinel takes its top bit, a misaligned g), and in
+   f32 at the coordinates of the CLI recipe's and the convergence rigs'
+   homographies (g [4, 1800, 128] -> 15x27); bitwise repeat; ``grad_input`` of ``aten.grid_sampler_2d_backward`` timed beside
    it; kernels and plain versions timed with CUDA events;
 5. B5, the lane broadcast / reduce experiment: each of its six variants
    against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
@@ -57,7 +62,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    torch.profiler after the serve and train profiles: all but one memset of
    its sort must be kernels named ``warp_bwd``, and B3's share of the step
    is those kernels in the step profile plus that memset;
-10. one JSON line with each kernel's launches, error, times and bound.
+10. the CLI and the ``Trainer`` (``mvdetr_tpu_torch.cli``), with every
+    kernel counted on each run (B1/B2/B3 3/3/1 per train step, 3 B1 per
+    eval batch, no B5) and the steps, data stages and epochs instrumented
+    (``EpochProbe``):
+    (a) the synthetic recipe of the repo's verify notes (``SKILL.md``) through ``cli.main``
+    (10 epochs of the synthetic scene, ``--deterministic true``): the
+    determinism check must pass and the last epoch's MODA reach 80;
+    (b) ``tests/test_convergence.py``'s contract through ``Trainer`` on its xy
+    and ij rigs: MODA >= 85, precision >= 90, the last epoch's loss below
+    half the first;
+    (c) two epochs at Wildtrack width through ``cli.main`` (7 cameras,
+    1080x1920 frames, 480x1440 grid, bf16, batch 2, 4 loader threads): per
+    epoch the train and test frame-sets/s and the card's busy share, both
+    also after the fill (from the first step on), peak memory and the
+    host's thread time per frame set by data stage (epoch 1 renders the
+    scene, epoch 2 reads the cache);
+11. one JSON line with each kernel's launches (by path: serve, train, cli,
+    trainer, experiment), error, times and bound.
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -70,8 +92,11 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -342,11 +367,13 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None):
     return rec
 
 
-def warp_flagship_inputs(rng, rig=None, batch=None, device="cuda") -> dict:
-    """B3's inputs on the main path: the source coordinates of the bench
-    rig's homographies under the train batch's augmentation affines (the
-    batch of ``train_batch(rig, 2, ..., seed=0)`` unless given), and g
-    [14, 43200, 128] bf16 from ``rng``, on the card by default."""
+def warp_flagship_inputs(rng, rig=None, batch=None, device="cuda", dtype=None) -> dict:
+    """B3's inputs on the main path: the source coordinates of a rig's
+    homographies (the bench rig's unless given) under a train batch's
+    augmentation affines (``train_batch(rig, 2, ..., seed=0)`` unless given),
+    from the trunk's stride-8 feature map of the batch's frames, and g
+    [B * cameras, BEV cells, 128] from ``rng`` in ``dtype`` (bf16 unless
+    given), on the card by default."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
@@ -354,11 +381,14 @@ def warp_flagship_inputs(rng, rig=None, batch=None, device="cuda") -> dict:
 
     rig = bench_rig() if rig is None else rig
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0) if batch is None else batch
+    b, n, img_h, img_w = batch["imgs"].shape[:4]
+    h, w = -(-img_h // 8), -(-img_w // 8)  # the trunk's feature map (720x1280 frames -> 90x160)
     geo = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, device=device)  # the path's homographies
-    mats = geo.warp_mats(torch.from_numpy(batch["affine_mats"]).to(device), (90, 160))
+    mats = geo.warp_mats(torch.from_numpy(batch["affine_mats"]).to(device), (h, w))
     sx, sy = warp_coords(mats, geo.Rworld_shape)
-    g = torch.from_numpy(rng.standard_normal((14, sx.shape[1], 128), dtype=np.float32)).to(device, torch.bfloat16)
-    return {"g": g, "sx": sx.contiguous(), "sy": sy.contiguous(), "h": 90, "w": 160, "bev_hw": geo.Rworld_shape}
+    g = torch.from_numpy(rng.standard_normal((b * n, sx.shape[1], 128), dtype=np.float32)).to(
+        device, torch.bfloat16 if dtype is None else dtype)
+    return {"g": g, "sx": sx.contiguous(), "sy": sy.contiguous(), "h": h, "w": w, "bev_hw": geo.Rworld_shape}
 
 
 WARP_STRESS_NAMES = ("one-cell", "segment-lengths", "all-outside", "nan-far", "C5-f32", "C40-f32", "C300-bf16",
@@ -516,8 +546,7 @@ def warp_phase(rng, rig, batch) -> dict:
     and at the stress cases. Returns a record."""
     import torch
 
-    from mvdetr_tpu_torch.ops import warp
-    from mvdetr_tpu_torch.ops.warp import warp_bwd
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
 
     flag = warp_flagship_inputs(rng, rig, batch)
     g, sx, sy, h, w = (flag[k] for k in ("g", "sx", "sy", "h", "w"))
@@ -534,6 +563,12 @@ def warp_phase(rng, rig, batch) -> dict:
     for name, c in warp_stress_cases(rng).items():
         b3["errs"].append(warp_case(name, c["g"], c["sx"], c["sy"], c["h"], c["w"], exact=c["exact"],
                                     ref_xy=c["ref_xy"])["err"])
+    # the cli recipe's and the convergence rigs' B3: batch 1, f32 (no --bf16), at each rig's coordinates
+    for name, rig_kw in CONVERGENCE_RIGS.items():
+        rrig = make_synthetic_rig(**rig_kw)
+        rbatch = train_batch(rrig, 1, world_reduce=4, img_reduce=12, seed=0, num_person=8)
+        c = warp_flagship_inputs(rng, rrig, rbatch, dtype=torch.float32)
+        b3["errs"].append(warp_case(f"recipe-{name}", c["g"], c["sx"], c["sy"], c["h"], c["w"])["err"])
     del flag, g, small
     torch.cuda.empty_cache()
     return b3
@@ -853,6 +888,290 @@ def train_full_width(rig, batch):
     return launches, ours
 
 
+# ----------------------------------------------------------------- the CLI and the Trainer
+# the synthetic recipe of the repo's verify notes (SKILL.md, "The surface"), which reaches MODA >= 80 there
+RECIPE = ["-d", "synthetic", "--epochs", "10", "--synthetic_frames", "12", "--augmentation", "true", "--world_feat",
+          "deform_trans", "--lr", "1e-3", "--cls_thres", "0.4", "-j", "4", "--deterministic", "true"]
+RECIPE_MODA = 80.0
+# B1/B2's shape on the recipe's and the convergence rigs' path: 4 cameras, a 120x240 grid at world_reduce 4
+# (30x60 BEV, 15x30 encoder grid), batch 1
+RECIPE_ATTENTION = dict(b=1, l=4, h=15, w=30, m=8, d=16, p=4, radius=4)
+# tests/test_convergence.py: its rigs, recipe and bounds
+CONVERGENCE_RIGS = {
+    "xy": dict(num_cam=4, img_shape=(180, 320), worldgrid_shape=(120, 240)),
+    "ij": dict(num_cam=4, img_shape=(180, 320), worldgrid_shape=(120, 240), cell_meters=0.025, indexing="ij",
+               worldcoord_unit=0.01, origin_offset=(-150.0, -450.0), name="SyntheticWildtrackBig"),
+}
+CONVERGENCE_MODA, CONVERGENCE_PRECISION, CONVERGENCE_LOSS_RATIO = 85.0, 90.0, 0.5
+CONVERGENCE_EPOCHS = 10
+# two epochs at Wildtrack width: 23 frames -> 20 train frame sets (10 steps of 2) and 3 test frame sets
+WILDTRACK_CLI = ["-d", "synthetic", "--epochs", "2", "--synthetic_cams", "7", "--synthetic_img", "1080", "1920",
+                 "--synthetic_grid", "480", "1440", "--synthetic_frames", "23", "--bf16", "true", "-b", "2",
+                 "-j", "4"]
+HOST_STAGES = ("render", "augment warp", "resize", "targets", "collate", "upload")
+
+
+class EpochProbe:
+    """Instruments the CLI and the Trainer while installed, by replacing module
+    attributes (put back by :meth:`uninstall`):
+
+    - each ``train_step`` / ``eval_step`` call is counted and bracketed by two
+      CUDA events on the current stream: the card's span of the step;
+    - the host's thread-seconds by data stage: rendering
+      (``SyntheticScene.image``, cached after a frame's first epoch), the
+      augmentation warp and the resize (the native library), the targets,
+      collation and the upload (pinning and queueing the copies);
+    - ``Trainer.train_epoch`` and ``Trainer.test`` record, while
+      ``self.epochs`` is a list, each call's wall time, frame sets, the sum of
+      its steps' spans over its wall time (the card's busy share), peak
+      memory and the stages per frame set, and the same rate and share after
+      the fill: from the host's first step call (the first batch is ready
+      and uploaded) to the call's end; every ``Trainer.test`` result is kept
+      in ``self.tests``.
+    """
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self._saved = []
+        self.train_steps = self.eval_steps = 0
+        self.epochs = None
+        self.tests = []
+        self._begin_epoch()
+
+    def _begin_epoch(self):
+        self.stage_s = dict.fromkeys(HOST_STAGES, 0.0)
+        self.spans = []
+        self.items = 0
+        self.first_step_t = None
+
+    def _patch(self, owner, name, wrapper):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, wrapper(getattr(owner, name)))
+
+    def _timed(self, stage):
+        def wrap(fn):
+            def timed(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    with self.lock:
+                        self.stage_s[stage] += time.perf_counter() - t0
+                        if stage == "collate":
+                            self.items += len(args[0])
+            return timed
+        return wrap
+
+    def _stepped(self, kind):
+        def wrap(fn):
+            def stepped(*args, **kw):
+                import torch
+
+                if self.first_step_t is None:
+                    self.first_step_t = time.perf_counter()
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+                self.spans.append((start, end))
+                if kind == "train":
+                    self.train_steps += 1
+                else:
+                    self.eval_steps += 1
+                return out
+            return stepped
+        return wrap
+
+    def _epoch(self, kind):
+        def wrap(fn):
+            def epoch(trainer, *args, **kw):
+                import torch
+
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                self._begin_epoch()
+                t0 = time.perf_counter()
+                out = fn(trainer, *args, **kw)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                wall = t1 - t0
+                if kind == "test":
+                    self.tests.append(out)
+                if self.epochs is not None:
+                    busy = sum(s.elapsed_time(e) for s, e in self.spans) / 1e3
+                    n = max(self.items, 1)
+                    after_fill = t1 - (self.first_step_t or t0)
+                    self.epochs.append({
+                        "kind": kind, "frame_sets": self.items, "steps": len(self.spans), "wall_s": wall,
+                        "frame_sets_per_s": self.items / wall, "busy_share": busy / wall,
+                        "fill_s": wall - after_fill, "after_fill_frame_sets_per_s": self.items / after_fill,
+                        "after_fill_busy_share": busy / after_fill,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "host_ms_per_frame_set": {k: v * 1e3 / n for k, v in self.stage_s.items()}})
+                return out
+            return epoch
+        return wrap
+
+    def install(self) -> "EpochProbe":
+        from mvdetr_tpu_torch import native
+        from mvdetr_tpu_torch.data import dataset, prefetch, source
+        from mvdetr_tpu_torch.train import trainer
+
+        self._patch(source.SyntheticScene, "image", self._timed("render"))
+        self._patch(native, "warp_image_u8", self._timed("augment warp"))
+        self._patch(native, "resize_u8", self._timed("resize"))
+        self._patch(dataset, "build_targets", self._timed("targets"))
+        self._patch(dataset, "collate", self._timed("collate"))
+        self._patch(prefetch, "upload", self._timed("upload"))
+        self._patch(trainer, "train_step", self._stepped("train"))
+        self._patch(trainer, "eval_step", self._stepped("eval"))
+        self._patch(trainer.Trainer, "train_epoch", self._epoch("train"))
+        self._patch(trainer.Trainer, "test", self._epoch("test"))
+        return self
+
+    def uninstall(self) -> None:
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        self._saved.clear()
+
+
+def main_path_launches() -> dict:
+    from mvdetr_tpu_torch.ops.msda_windowed import msda_windowed_bwd, msda_windowed_fwd
+    from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    return {"msda_windowed_fwd": msda_windowed_fwd, "msda_windowed_bwd": msda_windowed_bwd, "warp_bwd": warp_bwd}
+
+
+def counted_run(label, probe, fn):
+    """Run ``fn`` with every kernel's count set to 0 just before and read
+    just after: B1/B2/B3 must launch 3/3/1 times per train step and B1 3
+    times per eval batch, each B5 variant no time. Returns ``(fn's result,
+    launches by kernel)``, B5's under ``lane_broadcast:<variant>``."""
+    from mvdetr_tpu_torch.ops import lane_broadcast as lb
+
+    wrappers = main_path_launches()
+    for w in wrappers.values():
+        w.launches = 0
+    lb.lane_broadcast.launches.clear()
+    lb.lane_reduce.launches.clear()
+    steps0, evals0 = probe.train_steps, probe.eval_steps
+    out = fn()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    b5 = lb.lane_broadcast.launches + lb.lane_reduce.launches
+    launches.update({f"{lb.KERNEL_NAME}:{v}": b5[v] for v in lb.VARIANTS})
+    steps, evals = probe.train_steps - steps0, probe.eval_steps - evals0
+    expected = {"msda_windowed_fwd": 3 * (steps + evals), "msda_windowed_bwd": 3 * steps, "warp_bwd": steps,
+                **{f"{lb.KERNEL_NAME}:{v}": 0 for v in lb.VARIANTS}}
+    print(f"{label}: {steps} train steps, {evals} eval batches; launches {launches} (expected {expected})")
+    check(steps > 0 and evals > 0 and launches == expected, f"{label}: launches {launches}, expected {expected}")
+    return out, launches
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` on the card in a temporary logdir (removed after);
+    the CLI's stdout tee and its cuDNN settings are put back. Returns
+    the trainer and ``log.txt``."""
+    import torch
+
+    from mvdetr_tpu_torch import cli
+
+    saved = (sys.stdout, torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    logdir = tempfile.mkdtemp(prefix="mvdetr_cli_")
+    try:
+        trainer = cli.main(argv + ["--logdir", logdir])
+        with open(os.path.join(logdir, "log.txt")) as fh:
+            log = fh.read()
+        check(os.path.isfile(os.path.join(logdir, "test.txt")), "cli: no test.txt")
+        check(bool(os.listdir(os.path.join(logdir, "checkpoints"))), "cli: no checkpoint")
+    finally:
+        if sys.stdout is not saved[0]:
+            sys.stdout.close()
+            sys.stdout = saved[0]
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+        shutil.rmtree(logdir, ignore_errors=True)
+    return trainer, log
+
+
+def recipe_phase(probe) -> dict:
+    """(a) SKILL.md's recipe through ``cli.main``: the determinism check must
+    pass and the last epoch's MODA reach RECIPE_MODA."""
+    probe.tests = []
+    t0 = time.perf_counter()
+    (trainer, log), launches = counted_run("cli recipe", probe, lambda: run_cli(RECIPE))
+    wall = time.perf_counter() - t0
+    modas = [round(t[1], 1) for t in probe.tests]
+    print(f"cli recipe ({' '.join(RECIPE)}): {wall:.1f} s; MODA by epoch {modas[:-1]}, then the reloaded model "
+          f"{modas[-1]}; last epoch loss {probe.tests[-2][0]:.4f}, precision {probe.tests[-2][3]:.1f}, recall "
+          f"{probe.tests[-2][4]:.1f}")
+    check("determinism check passed" in log, "cli recipe: the determinism check did not pass")
+    check(len(probe.tests) == 11 and probe.tests[-1] == probe.tests[-2], "cli recipe: tests do not repeat")
+    check(probe.tests[-2][1] >= RECIPE_MODA, f"cli recipe: MODA {probe.tests[-2][1]} < {RECIPE_MODA}")
+    return launches
+
+
+def convergence_phase(probe) -> dict:
+    """(b) tests/test_convergence.py through the port's Trainer on both rigs."""
+    import torch
+
+    from mvdetr_tpu_torch.data import FrameDataset, SyntheticScene
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.train import Trainer, create_train_state
+
+    total = {}
+    for name, rig_kw in CONVERGENCE_RIGS.items():
+        def run():
+            seed, epochs = 2021, CONVERGENCE_EPOCHS
+            rig = make_synthetic_rig(**rig_kw)
+            scene = SyntheticScene(rig, num_frame=12, num_person=8, seed=seed)
+            kw = dict(world_reduce=4, img_reduce=12, top_k=32, world_kernel_size=10, img_kernel_size=10)
+            train_set = FrameDataset(scene, train=True, augmentation=True, seed=seed, **kw)
+            test_set = FrameDataset(scene, train=False, seed=seed, **kw)
+            model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, world_feat_arch="deform_trans", seed=seed)
+            state = create_train_state(model, lr=1e-3, total_steps=len(train_set) * epochs)
+            trainer = Trainer(state, train_set, test_set, cls_thres=0.4, logger=lambda *a: None, seed=seed)
+            losses = [trainer.train_epoch(ep, batch_size=1) for ep in range(1, epochs + 1)]
+            return losses, trainer.test(batch_size=1)
+
+        t0 = time.perf_counter()
+        (losses, (_, moda, modp, precision, recall)), launches = counted_run(f"convergence {name}", probe, run)
+        print(f"convergence {name} rig: {time.perf_counter() - t0:.1f} s; losses {[round(v, 4) for v in losses]}; "
+              f"MODA {moda:.1f}, MODP {modp:.1f}, precision {precision:.1f}, recall {recall:.1f}")
+        check(losses[-1] < CONVERGENCE_LOSS_RATIO * losses[0], f"convergence {name}: loss {losses[0]} -> {losses[-1]}")
+        check(moda >= CONVERGENCE_MODA, f"convergence {name}: MODA {moda} < {CONVERGENCE_MODA}")
+        check(precision >= CONVERGENCE_PRECISION, f"convergence {name}: precision {precision}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        torch.cuda.empty_cache()
+    return total
+
+
+def wildtrack_cli_phase(probe) -> dict:
+    """(c) two epochs at Wildtrack width through ``cli.main``: per epoch the
+    train and test frame-sets/s, the card's busy share, peak memory and the
+    host's time per frame set by stage."""
+    import torch
+
+    probe.epochs, probe.tests = [], []
+    try:
+        (trainer, log), launches = counted_run("cli wildtrack", probe, lambda: run_cli(WILDTRACK_CLI))
+    finally:
+        epochs, probe.epochs = probe.epochs, None
+    labels = iter(["epoch 1 train", "epoch 1 test", "epoch 2 train", "epoch 2 test", "final test"])
+    for rec, label in zip(epochs, labels):
+        stages = ", ".join(f"{k} {v:.2f}" for k, v in rec["host_ms_per_frame_set"].items())
+        print(f"cli wildtrack {label}: {rec['frame_sets']} frame sets, {rec['steps']} steps in {rec['wall_s']:.3f} s, "
+              f"{rec['frame_sets_per_s']:.3f} frame-sets/s, card busy share {rec['busy_share']:.3f}; after the "
+              f"{rec['fill_s']:.3f} s fill (to the first step) {rec['after_fill_frame_sets_per_s']:.3f} frame-sets/s, "
+              f"busy share {rec['after_fill_busy_share']:.3f}; peak memory {rec['peak_gib']:.2f} GiB; host ms per "
+              f"frame set (thread time): {stages}")
+        check(rec["frame_sets"] > 0 and math.isfinite(rec["frame_sets_per_s"]), f"cli wildtrack {label}: no work")
+    check(len(epochs) == 5, f"cli wildtrack: {len(epochs)} epoch records")
+    check(all(math.isfinite(t[0]) for t in probe.tests), "cli wildtrack: non-finite test loss")
+    print(f"cli wildtrack: MODA by epoch {[round(t[1], 1) for t in probe.tests]} (random init, 2 epochs: no bound); "
+          f"{torch.cuda.get_device_name(0)}")
+    return {"launches": launches, "epochs": epochs}
+
+
 def main() -> int:
     import torch
 
@@ -860,6 +1179,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from mvdetr_tpu_torch import native
     from mvdetr_tpu_torch.ops import kernel_build, lane_broadcast, msda_windowed, warp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -876,6 +1196,10 @@ def main() -> int:
     warp.load_library()
     lane_broadcast.load_library()
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.1f} s (in parallel)")
+    t0 = time.perf_counter()
+    native.load_library()  # the data path's host library (g++), built at first use as the kernels are
+    print(f"build: native/dataio.cpp in {time.perf_counter() - t0:.1f} s -> "
+          f"{os.path.relpath(native.library_path(), ROOT)}")
     for name, lib in zip(names, libs):
         print(f"build log {name} -> {os.path.relpath(lib, ROOT)}:\n{(lib.parent / 'build.log').read_text().strip()}")
 
@@ -911,6 +1235,11 @@ def main() -> int:
     b2_r16 = bwd_case("flagship-R16", **{**flagship, "radius": 16}, integer=False, rng=rng, timed="query")
     b2_errs.append(b2_r16["err"])
     b2["query_ms_R16"] = b2_r16["query_ms"]
+    # the shape the cli recipe and the convergence rigs launch B1 and B2 at
+    for integer in (False, True):
+        label = f"recipe-{'integer' if integer else 'random'}"
+        b1_errs.append(fwd_case(label, **RECIPE_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
+        b2_errs.append(bwd_case(label, **RECIPE_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
 
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
@@ -922,14 +1251,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, step_profile = train_full_width(rig, batch)
     warp_profile(b3, rig, batch, step_profile[warp.KERNEL_NAME])
+    torch.cuda.empty_cache()
+
+    probe = EpochProbe().install()
+    try:
+        recipe_launches = recipe_phase(probe)
+        trainer_launches = convergence_phase(probe)
+        wildtrack = wildtrack_cli_phase(probe)
+    finally:
+        probe.uninstall()
+    cli_launches = {k: recipe_launches[k] + wildtrack["launches"][k] for k in recipe_launches}
 
     records = [
         (msda_windowed.KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel.py:95", b1, b1_errs,
-         {"serve": serve_launches, "train": train_launches[msda_windowed.KERNEL_NAME]}),
+         {"serve": serve_launches, "train": train_launches[msda_windowed.KERNEL_NAME],
+          "cli": cli_launches[msda_windowed.KERNEL_NAME], "trainer": trainer_launches[msda_windowed.KERNEL_NAME]}),
         (msda_windowed.BWD_KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel_bwd.py:43", b2, b2_errs,
-         {"train": train_launches[msda_windowed.BWD_KERNEL_NAME]}),
+         {"train": train_launches[msda_windowed.BWD_KERNEL_NAME], "cli": cli_launches[msda_windowed.BWD_KERNEL_NAME],
+          "trainer": trainer_launches[msda_windowed.BWD_KERNEL_NAME]}),
         (warp.KERNEL_NAME, "mvdetr_tpu/ops/pallas/warp_bwd.py:43", b3, b3["errs"],
-         {"train": train_launches[warp.KERNEL_NAME]}),
+         {"train": train_launches[warp.KERNEL_NAME], "cli": cli_launches[warp.KERNEL_NAME],
+          "trainer": trainer_launches[warp.KERNEL_NAME]}),
     ]
     rows = [{
         "name": name,
@@ -959,8 +1301,11 @@ def main() -> int:
         "route": "cuda",
         "source": f"mvdetr_tpu_torch/csrc/{lane_broadcast.KERNEL_NAME}.cu",
         "replaces": lane_broadcast.TPU_BODIES[variant],
-        "launches": b5[variant]["launches"],
-        "launches_by_path": {"experiment": b5[variant]["launches"]},
+        "launches": b5[variant]["launches"] + cli_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"]
+        + trainer_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"],
+        "launches_by_path": {"experiment": b5[variant]["launches"],
+                             "cli": cli_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"],
+                             "trainer": trainer_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"]},
         "max_abs_err": max(rec[big]["err"], rec[tile]["err"]),
         "ms": rec[big]["ms"],
         "plain_ms": rec[big]["plain_ms"],

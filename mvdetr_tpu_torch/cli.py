@@ -1,0 +1,310 @@
+"""Experiment runner, port of ``mvdetr_tpu/cli.py`` (the original MVDeTr's
+``main.py``).
+
+Trains epoch after epoch from a dataset, tests with CLEAR after each epoch,
+checkpoints the full train state, and writes ``log.txt`` (a tee of stdout),
+``test.txt`` (the last test's detections), ``checkpoints/<step>/`` and a
+snapshot of the package's source into a config-encoded logdir
+(`main.py:77-89`). ``--resume <name>`` reloads the weights of a run and
+tests them; ``--resume_train <logdir>`` restores the full state and
+continues the epoch loop; ``--epochs_per_process N`` stops after N epochs.
+
+The parser is the JAX package's, flag for flag and default for default,
+plus ``--device`` (default ``cuda``; the run raises without a card unless
+``--device cpu``). A flag whose feature the port does not have yet raises
+before any work: ``--view_shards``/``--bev_shards`` > 1 and the multi-host
+flags (ROADMAP item A.9), ``--load_torch_ckpt`` (A.6), ``--visualize``
+(A.5), ``--arch vgg11``, ``--world_feat`` other than ``deform_trans``,
+``--attn_mode gather|warped``, ``--n_points 8`` and ``--remat_backbone``
+(A.7). ``--reID`` and ``--id_ratio`` are accepted and, as in the JAX
+package, only name the logdir.
+
+Usage::
+
+    python -m mvdetr_tpu_torch.cli -d synthetic --epochs 10 --synthetic_frames 12 --lr 1e-3 --cls_thres 0.4
+    python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --epochs 1 --synthetic_frames 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import importlib.util
+import os
+import shutil
+import sys
+
+
+def str2bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Multiview detector on the GPU (PyTorch + CUDA)")
+    parser.add_argument("--reID", action="store_true")
+    parser.add_argument("--semi_supervised", type=float, default=0)
+    parser.add_argument("--id_ratio", type=float, default=0)
+    parser.add_argument("--cls_thres", type=float, default=0.6)
+    parser.add_argument("--alpha", type=float, default=1.0, help="ratio for per view loss")
+    parser.add_argument("--use_mse", type=str2bool, default=False)
+    parser.add_argument("--arch", type=str, default="resnet18", choices=["vgg11", "resnet18"])
+    parser.add_argument("-d", "--dataset", type=str, default="wildtrack",
+                        choices=["wildtrack", "multiviewx", "synthetic"])
+    parser.add_argument("-j", "--num_workers", type=int, default=4)
+    parser.add_argument("-b", "--batch_size", type=int, default=1)
+    parser.add_argument("--dropout", type=float, default=0.0)
+    parser.add_argument("--dropcam", type=float, default=0.0)
+    parser.add_argument("--epochs", type=int, default=10)
+    parser.add_argument("--lr", type=float, default=5e-4)
+    parser.add_argument("--base_lr_ratio", type=float, default=0.1)
+    parser.add_argument("--weight_decay", type=float, default=1e-4)
+    parser.add_argument("--resume", type=str, default=None)
+    parser.add_argument("--resume_train", type=str, default=None,
+                        help="logdir (path or logs/<dataset>/<name>) to restore the FULL train state "
+                             "(parameters, optimizer, schedule, step) from and continue the epoch loop")
+    parser.add_argument("--epochs_per_process", type=int, default=None,
+                        help="stop after N epochs this process (checkpoint saved); rerun with "
+                             "--resume_train to continue")
+    parser.add_argument("--visualize", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler trace of epoch-1 steps 2-4 to logdir/trace")
+    parser.add_argument("--seed", type=int, default=2021)
+    parser.add_argument("--deterministic", type=str2bool, default=False)
+    parser.add_argument("--augmentation", type=str2bool, default=True)
+    parser.add_argument("--world_feat", type=str, default="deform_trans",
+                        choices=["conv", "trans", "deform_conv", "deform_trans", "aio"])
+    parser.add_argument("--bottleneck_dim", type=int, default=128)
+    parser.add_argument("--outfeat_dim", type=int, default=0)
+    parser.add_argument("--world_reduce", type=int, default=4)
+    parser.add_argument("--world_kernel_size", type=int, default=10)
+    parser.add_argument("--img_reduce", type=int, default=12)
+    parser.add_argument("--img_kernel_size", type=int, default=10)
+    parser.add_argument("--view_shards", type=int, default=1, help="devices along the view axis (not ported)")
+    parser.add_argument("--bev_shards", type=int, default=1, help="devices along the BEV-row axis (not ported)")
+    parser.add_argument("--coordinator_address", type=str, default=None, help="multi-host (not ported)")
+    parser.add_argument("--num_processes", type=int, default=None, help="multi-host (not ported)")
+    parser.add_argument("--process_id", type=int, default=None, help="multi-host (not ported)")
+    parser.add_argument("--bf16", type=str2bool, default=False, help="bfloat16 compute (params stay f32)")
+    parser.add_argument("--attn_mode", type=str, default="auto", choices=["auto", "gather", "windowed", "warped"])
+    parser.add_argument("--n_points", type=int, default=4, choices=[4, 8],
+                        help="deformable points per (head, level); 8 = shadow reference maps (not ported)")
+    parser.add_argument("--attn_radius", type=int, default=None,
+                        help="windowed-attention clamp radius in BEV cells (default 4)")
+    parser.add_argument("--nms_top_k", type=int, default=512,
+                        help="eval candidate cap before NMS (the trainer warns when it saturates)")
+    parser.add_argument("--remat_backbone", type=str2bool, default=False,
+                        help="rematerialize backbone blocks on backward (not ported)")
+    parser.add_argument("--backbone_ckpt", type=str, default=None,
+                        help="torchvision resnet18 .pth/.npz for ImageNet init")
+    parser.add_argument("--load_torch_ckpt", type=str, default=None,
+                        help="reference MultiviewDetector.pth, eval only (not ported)")
+    parser.add_argument("--warp_convention", type=str, default=None, choices=["center", "kornia"],
+                        help="BEV warp sampling convention; default 'center'")
+    parser.add_argument("--data_root", type=str, default=None)
+    parser.add_argument("--logdir", type=str, default=None,
+                        help="explicit run directory (overrides the config-encoded name)")
+    # synthetic-scene sizing (dataset == synthetic only)
+    parser.add_argument("--synthetic_cams", type=int, default=4)
+    parser.add_argument("--synthetic_frames", type=int, default=60)
+    parser.add_argument("--synthetic_img", type=int, nargs=2, default=(180, 320))
+    parser.add_argument("--synthetic_grid", type=int, nargs=2, default=(120, 240))
+    # the port's addition
+    parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                        help="where the model runs; 'cuda' raises without a card")
+    return parser
+
+
+def check_ported(args) -> None:
+    """Raise for every flag whose feature the port does not have yet."""
+    unported = {
+        "--view_shards > 1 (ROADMAP item A.9, multi-GPU)": args.view_shards > 1,
+        "--bev_shards > 1 (ROADMAP item A.9, multi-GPU)": args.bev_shards > 1,
+        "--num_processes, --coordinator_address, --process_id (ROADMAP item A.9, multi-GPU)":
+            bool(args.num_processes and args.num_processes > 1) or args.coordinator_address is not None
+            or args.process_id is not None,
+        "--load_torch_ckpt (ROADMAP item A.6, the reference-checkpoint path)": args.load_torch_ckpt is not None,
+        "--visualize (ROADMAP item A.5)": args.visualize,
+        "--arch vgg11 (ROADMAP item A.7)": args.arch != "resnet18",
+        f"--world_feat {args.world_feat} (ROADMAP item A.7)": args.world_feat != "deform_trans",
+        f"--attn_mode {args.attn_mode} (ROADMAP item A.7)": args.attn_mode in ("gather", "warped"),
+        "--n_points 8 (ROADMAP item A.7)": args.n_points != 4,
+        "--remat_backbone (ROADMAP item A.7)": args.remat_backbone,
+    }
+    missing = [flag for flag, used in unported.items() if used]
+    if missing:
+        raise NotImplementedError(f"mvdetr_tpu_torch.cli: not ported yet: {'; '.join(missing)}")
+
+
+def main(args=None):
+    args = build_parser().parse_args(args)
+    check_ported(args)
+
+    import numpy as np
+    import torch
+
+    from mvdetr_tpu_torch.data import FrameDataset, SyntheticScene, open_scene
+    from mvdetr_tpu_torch.device import resolve_device
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.train import (
+        Trainer, create_train_state, restore_checkpoint, restore_weights, save_checkpoint,
+    )
+    from mvdetr_tpu_torch.utils.logger import Logger
+
+    device = resolve_device(args.device)
+    if args.deterministic:  # as the original MVDeTr's --deterministic (`main.py:43-46`)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+
+    if args.dataset == "synthetic":
+        rig = make_synthetic_rig(
+            num_cam=args.synthetic_cams,
+            img_shape=tuple(args.synthetic_img),
+            worldgrid_shape=tuple(args.synthetic_grid),
+        )
+        scene = SyntheticScene(rig, num_frame=args.synthetic_frames, num_person=8, seed=args.seed)
+    else:
+        scene = open_scene(args.data_root or args.dataset)
+        rig = scene.rig
+
+    common = dict(
+        world_reduce=args.world_reduce, img_reduce=args.img_reduce,
+        world_kernel_size=args.world_kernel_size, img_kernel_size=args.img_kernel_size,
+        seed=args.seed,
+    )
+    train_set = FrameDataset(scene, train=True, semi_supervised=args.semi_supervised,
+                             dropout=args.dropcam, augmentation=args.augmentation, **common)
+    test_set = FrameDataset(scene, train=False, **common)
+
+    # logdir convention (`main.py:77-89`)
+    if args.resume_train is not None:
+        logdir = (args.resume_train if os.path.isdir(args.resume_train)
+                  else f"logs/{args.dataset}/{args.resume_train}")
+        sys.stdout = Logger(os.path.join(logdir, "log.txt"), append=True)
+    elif args.resume is None:
+        if args.logdir is not None:
+            logdir = args.logdir
+        else:
+            logdir = (
+                f"logs/{args.dataset}/{'SS_' if args.semi_supervised else ''}"
+                f"{'aug_' if args.augmentation else ''}{args.world_feat}_lr{args.lr}_baseR{args.base_lr_ratio}_"
+                f"neck{args.bottleneck_dim}_out{args.outfeat_dim}_"
+                f"alpha{args.alpha}_id{args.id_ratio}_drop{args.dropout}_dropcam{args.dropcam}_"
+                f"worldRK{args.world_reduce}_{args.world_kernel_size}_imgRK{args.img_reduce}_{args.img_kernel_size}_"
+                f"{datetime.datetime.today():%Y-%m-%d_%H-%M-%S}"
+            )
+        os.makedirs(logdir, exist_ok=True)
+        _snapshot_source(logdir)
+        sys.stdout = Logger(os.path.join(logdir, "log.txt"))
+    else:
+        logdir = f"logs/{args.dataset}/{args.resume}"
+    print(logdir)
+    print("Settings:")
+    print(vars(args))
+
+    model = MVDeTr.from_rig(
+        rig, world_reduce=args.world_reduce, img_reduce=args.img_reduce, arch=args.arch,
+        world_feat_arch=args.world_feat, bottleneck_dim=args.bottleneck_dim,
+        outfeat_dim=args.outfeat_dim, dropout=args.dropout,
+        compute_dtype=torch.bfloat16 if args.bf16 else None,
+        attn_mode=args.attn_mode, attn_radius=4 if args.attn_radius is None else args.attn_radius,
+        n_points=args.n_points, warp_convention=args.warp_convention or "center",
+        device=device, seed=args.seed,
+    )
+
+    backbone_vars = None
+    if args.backbone_ckpt:
+        if args.backbone_ckpt.endswith(".npz"):
+            backbone_vars = dict(np.load(args.backbone_ckpt))
+        else:
+            backbone_vars = torch.load(args.backbone_ckpt, map_location="cpu", weights_only=True)
+
+    steps_per_epoch = train_set.steps_per_epoch(args.batch_size)
+    state = create_train_state(
+        model, lr=args.lr, total_steps=steps_per_epoch * args.epochs, base_lr_ratio=args.base_lr_ratio,
+        weight_decay=args.weight_decay, backbone_variables=backbone_vars,
+    )
+
+    trainer = Trainer(state, train_set, test_set, cls_thres=args.cls_thres, alpha=args.alpha,
+                      use_mse=args.use_mse, nms_top_k=args.nms_top_k, num_workers=args.num_workers,
+                      profile_dir=os.path.join(logdir, "trace") if args.profile else None, seed=args.seed)
+    res_fpath = os.path.join(logdir, "test.txt")
+    ckpt_dir = os.path.join(logdir, "checkpoints")
+
+    if args.deterministic:
+        trainer.check_determinism(batch_size=args.batch_size)
+
+    history = {"epoch": [], "train_loss": [], "test_loss": [], "moda": []}
+    start_epoch = 1
+    if args.resume_train:
+        restore_checkpoint(ckpt_dir, trainer.state)
+        start_epoch = trainer.state.step // steps_per_epoch + 1
+        print(f"resume_train: restored step {trainer.state.step} "
+              f"-> continuing at epoch {start_epoch}/{args.epochs}")
+    if args.resume is None:
+        draw = importlib.util.find_spec("matplotlib") is not None
+        if not draw:
+            print("NOTE: matplotlib is not installed; no learning_curve.jpg is drawn")
+        for epoch in range(start_epoch, args.epochs + 1):
+            print(f"=== epoch {epoch}/{args.epochs} ===")
+            train_loss = trainer.train_epoch(epoch, batch_size=args.batch_size)
+            test_loss, moda, modp, prec, recall = trainer.test(batch_size=args.batch_size, res_fpath=res_fpath)
+            history["epoch"].append(epoch)
+            history["train_loss"].append(train_loss)
+            history["test_loss"].append(test_loss)
+            history["moda"].append(moda)
+            save_checkpoint(ckpt_dir, trainer.state)
+            if draw:
+                _draw_curve(os.path.join(logdir, "learning_curve.jpg"), history)
+            if (args.epochs_per_process and epoch < args.epochs
+                    and epoch - start_epoch + 1 >= args.epochs_per_process):
+                print(f"epochs_per_process budget reached at epoch {epoch}; "
+                      f"continue with --resume_train {logdir}")
+                return trainer
+    else:
+        restore_weights(ckpt_dir, trainer.state)
+        if args.profile:
+            print("NOTE: --profile has no effect with --resume (the training loop is skipped)")
+    print("Test loaded model...")
+    trainer.test(batch_size=args.batch_size, res_fpath=res_fpath)
+    return trainer
+
+
+def _snapshot_source(logdir: str) -> None:
+    """Copy the package source into ``logdir/scripts`` so every run records
+    the exact code it ran (`main.py:84-88`); built libraries and caches are
+    left out."""
+    src = os.path.dirname(os.path.abspath(__file__))
+    dst = os.path.join(logdir, "scripts", "mvdetr_tpu_torch")
+    try:
+        shutil.copytree(src, dst, ignore=shutil.ignore_patterns("__pycache__", "_build"), dirs_exist_ok=True)
+    except OSError as e:  # best effort (read-only file system, ...), and said so
+        print(f"NOTE: source snapshot into {dst} failed: {e}")
+
+
+def _draw_curve(path: str, history: dict) -> None:
+    """Per-epoch loss/MODA plot (`utils/draw_curve.py:7-18`)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax1 = plt.subplots()
+    ax1.plot(history["epoch"], history["train_loss"], "b-", label="train loss")
+    ax1.plot(history["epoch"], history["test_loss"], "r-", label="test loss")
+    ax1.legend(loc="upper left")
+    ax2 = ax1.twinx()
+    ax2.plot(history["epoch"], history["moda"], "g-", label="MODA %")
+    ax2.legend(loc="upper right")
+    fig.savefig(path)
+    plt.close(fig)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,15 +7,17 @@
   person id, sub-cell offset and (optionally) box width/height, all in
   reduced-grid units.
 
-The JAX package splats through its optional C++ extension
-(``mvdetr_tpu.native.splat_gaussian``); here the splats run through the numpy
-:func:`splat_gaussian` loop that the extension falls back to
-(`mvdetr_tpu/native/__init__.py:53-56`), which gives the same maps.
+As in the JAX package, :func:`build_targets` splats through the native
+library (:func:`mvdetr_tpu_torch.native.splat_gaussian`, a copy of the JAX
+package's C++ splat); :func:`splat_gaussian` is the numpy version it is
+held against.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from mvdetr_tpu_torch import native
 
 
 def gaussian2d(shape, sigma: float = 1.0) -> np.ndarray:
@@ -66,8 +68,8 @@ def build_targets(reduced_shape, x_s, y_s, w_s=None, h_s=None, pids=None, reduce
             offset[k] = ct - ct_int
             if w_s is not None and h_s is not None:
                 wh[k] = [w_s[k] / reduce, h_s[k] / reduce]
-    for c in centers:
-        splat_gaussian(heatmap[:, :, 0], c, kernel_size / reduce)
+    if centers:
+        native.splat_gaussian(heatmap[:, :, 0], np.stack(centers), kernel_size / reduce)
 
     out = {"heatmap": heatmap, "reg_mask": reg_mask, "idx": idx, "pid": pid, "offset": offset}
     if w_s is not None and h_s is not None:

@@ -86,7 +86,7 @@ def from_jax_variables(variables: dict, device="cuda") -> "OrderedDict[str, torc
     if set(wf) != _DEFORM_TRANS_KEYS:
         raise NotImplementedError(
             f"world_feat parameters {sorted(wf)} are not the shadow transformer's; the other "
-            "variants wait for ROADMAP item A8"
+            "variants wait for ROADMAP item A.7"
         )
     conv("world_feat.downsample.0", wf["downsample"])
     sd["world_feat.lvl_embedding"] = np.asarray(wf["lvl_embedding"])

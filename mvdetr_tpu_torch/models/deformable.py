@@ -5,7 +5,7 @@ Windowed mode only in this slice: the reference map is the identity grid
 learned offset clamped to ``+-radius``, and the sampling runs through
 :func:`mvdetr_tpu_torch.ops.msda_windowed.windowed_attention` (the CUDA
 kernel on the card). The ``gather`` and ``warped`` modes wait for ROADMAP
-item A8 and raise.
+item A.7 and raise.
 
 Parameter names follow the reference checkpoint
 (``self_attn.{value_proj,sampling_offsets,attention_weights,output_proj}``,
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from mvdetr_tpu_torch.models.layers import Dropout, LayerNorm, Linear
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 
-_MODES_LATER = "the 'gather' and 'warped' attention modes wait for ROADMAP item A8"
+_MODES_LATER = "the 'gather' and 'warped' attention modes wait for ROADMAP item A.7"
 
 
 def radial_offset_bias(n_heads: int, n_levels: int, n_points: int,

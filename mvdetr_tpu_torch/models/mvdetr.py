@@ -62,7 +62,8 @@ class MVDeTr(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if arch != "resnet18":
-            raise NotImplementedError(f"backbone {arch!r} waits for ROADMAP item A8; this slice ports resnet18")
+            raise NotImplementedError(f"backbone {arch!r} waits for ROADMAP item A.7 (the other modes and variants); "
+                                      "the port has resnet18")
         if warp_convention not in ("center", "kornia"):
             raise ValueError(f"unknown warp_convention: {warp_convention}")
         if proj_mats is None:

@@ -2,7 +2,7 @@
 
 Only the shadow transformer (``DeformTransWorldFeat``) in windowed mode is
 ported in this slice; ``build_world_feat`` raises for the other four variants
-(ROADMAP item A8).
+(ROADMAP item A.7).
 """
 
 from __future__ import annotations
@@ -163,5 +163,6 @@ def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
                                     n_points=n_points, reference_points=reference_points, dtype=dtype,
                                     attn_mode=attn_mode, attn_radius=attn_radius, generator=generator)
     if arch in ("conv", "trans", "aio", "deform_conv"):
-        raise NotImplementedError(f"world_feat {arch!r} waits for ROADMAP item A8; this slice ports deform_trans")
+        raise NotImplementedError(f"world_feat {arch!r} waits for ROADMAP item A.7 (the other modes and variants); "
+                                  "the port has deform_trans")
     raise ValueError(f"unknown world_feat arch: {arch}")

@@ -37,3 +37,29 @@ def top_k(x: torch.Tensor, k: int):
     an order for ties)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+_top_k = top_k  # ctdet_decode's argument shadows the function's name
+
+
+def ctdet_decode(heatmap: torch.Tensor, offset: torch.Tensor | None = None, wh: torch.Tensor | None = None,
+                 top_k: int = 100) -> torch.Tensor:
+    """Sparse top-K decode (`decode.py:47-77` of the reference):
+    ``heatmap [B, H, W, 1]`` logits -> sigmoid -> 3x3 peaks -> the ``top_k``
+    highest cells (ties in index order, as ``lax.top_k``). Returns
+    ``[B, K, 3]`` rows (x, y, score), or ``[B, K, 5]`` (x, y, w, h, score)
+    when ``wh [B, H, W, 2]`` is given; coordinates in feature-grid units,
+    shifted by the gathered ``offset [B, H, W, 2]`` or else by 0.5."""
+    b, h, w, _ = heatmap.shape
+    score = heatmap_peaks(torch.sigmoid(heatmap))
+    top_scores, top_idx = _top_k(score.reshape(b, h * w), top_k)
+    xy = torch.stack([(top_idx % w).to(torch.float32), (top_idx // w).to(torch.float32)], dim=-1)
+    if offset is not None:
+        xy = xy + torch.take_along_dim(offset.reshape(b, h * w, 2), top_idx[..., None], dim=1)
+    else:
+        xy = xy + 0.5
+    cols = [xy]
+    if wh is not None:
+        cols.append(torch.take_along_dim(wh.reshape(b, h * w, 2), top_idx[..., None], dim=1))
+    cols.append(top_scores[..., None])
+    return torch.cat(cols, dim=-1)

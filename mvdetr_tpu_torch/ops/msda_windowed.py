@@ -419,7 +419,7 @@ def windowed_attention(value, offsets, weights, radius: int = 4, row_halo: bool 
     and backward on the inputs as given.
     """
     if row_halo:
-        raise NotImplementedError("row_halo (BEV-row sharding) waits for the multi-GPU slice (ROADMAP A9)")
+        raise NotImplementedError("row_halo (BEV-row sharding) waits for the multi-GPU slice (ROADMAP item A.9)")
     if value.device.type not in ("cuda", "cpu"):
         raise ValueError(f"windowed_attention: unsupported device {value.device}")
     out = _WindowedAttentionFn.apply(value, offsets, weights, radius)

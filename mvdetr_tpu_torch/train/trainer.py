@@ -1,4 +1,4 @@
-"""Training and serving steps, port of ``mvdetr_tpu/train/trainer.py:31-131``.
+"""Training and evaluation, port of ``mvdetr_tpu/train/trainer.py``.
 
 - :func:`supervised_loss`: ``world_focal + world_off_l1 + (img_focal +
   img_off_l1 + 0.1 * img_wh_l1) / N * alpha`` (or the ``use_mse`` form).
@@ -8,20 +8,31 @@
 - :func:`eval_step`: forward at inference -> sigmoid -> dense
   ``mvdet_decode`` -> top-K candidates -> per-sample greedy
   ``distance_nms``, plus the loss terms when the batch carries targets.
-
-The epoch loop, ``check_determinism``, checkpoints and the CLI wait for
-ROADMAP item A7.
+- :class:`Trainer`: the epoch loop over a ``FrameDataset`` (worker threads,
+  batches uploaded ahead by :func:`~mvdetr_tpu_torch.data.prefetch.prefetch_to_device`),
+  the CLEAR test (`trainer.py:99-169` of the original MVDeTr) and the
+  bitwise determinism check. Its multi-device branches and its heatmap and
+  shadow-figure dumps wait for ROADMAP items A.9 and A.5.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
+import time
+from typing import Optional
+
+import numpy as np
 import torch
 
 from mvdetr_tpu_torch import losses
+from mvdetr_tpu_torch.data.prefetch import prefetch_to_device
 from mvdetr_tpu_torch.device import resolve_device
+from mvdetr_tpu_torch.evaluation import clear_metrics
 from mvdetr_tpu_torch.models.layers import set_dropout_generator
 from mvdetr_tpu_torch.ops import distance_nms, mvdet_decode, top_k
 from mvdetr_tpu_torch.train.optim import schedule_step
+from mvdetr_tpu_torch.utils.profiling import device_trace
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -147,3 +158,182 @@ def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 5
     (world_heatmap, world_offset), _ = outputs
     xys, keep = decode_detections(world_heatmap, world_offset, world_reduce, num_candidates, nms_dist)
     return aux, xys, keep
+
+
+def detection_rows(xys: np.ndarray, keep: np.ndarray, frames, cls_thres: float, indexing_ij: bool):
+    """Host side of the test loop on one batch of eval outputs (`trainer.py:
+    121-135` of the original MVDeTr): the kept top-K candidates above
+    ``cls_thres`` as rows ``[frame, x, y]``, the grid's (x, y) swapped to the
+    dataset's native order on ij rigs. Returns ``(rows, cap_hits)``:
+    ``cap_hits`` counts the frames whose every candidate cleared the
+    threshold, where the top-K cap likely cut detections."""
+    rows, cap_hits = [], 0
+    for b in range(xys.shape[0]):
+        above = xys[b, :, 2] > cls_thres
+        cap_hits += int(above.all())
+        pos = xys[b, keep[b] & above, :2]
+        if indexing_ij:  # grid (x, y) -> dataset-native (`trainer.py:125-128`)
+            pos = pos[:, [1, 0]]
+        rows.extend([int(frames[b]), p[0], p[1]] for p in pos)
+    return rows, cap_hits
+
+
+class Trainer:
+    """Epoch-level loop (host side): data iteration, logging, CLEAR eval.
+
+    The model runs where ``state.model`` lives. Each train step draws its
+    dropout masks from a ``torch.Generator`` on that device seeded from
+    ``(seed, state.step)``, so a run resumed from a checkpoint draws the same
+    masks as one that never stopped. ``profile_dir``: a ``torch.profiler``
+    trace of steps 2-4 of epoch 1 (step 1 builds the kernels and warms the
+    allocator) lands there.
+    """
+
+    def __init__(self, state, dataset_train, dataset_test, cls_thres: float = 0.4, alpha: float = 1.0,
+                 use_mse: bool = False, nms_top_k: int = 512, logger=print, num_workers: int = 0,
+                 profile_dir: Optional[str] = None, seed: int = 2021):
+        self.state = state
+        self.train_set = dataset_train
+        self.test_set = dataset_test
+        self.cls_thres = cls_thres
+        self.alpha = alpha
+        self.use_mse = use_mse
+        self.nms_top_k = nms_top_k
+        self.log = logger
+        self.num_workers = num_workers
+        self.profile_dir = profile_dir
+        self.seed = seed
+        self.device = next(state.model.parameters()).device
+
+    def step_generator(self, step: int) -> torch.Generator:
+        """The dropout generator of train step ``step``."""
+        seed = int(np.random.SeedSequence([self.seed, step]).generate_state(1, np.uint64)[0])
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _batches(self, batch_size: int):
+        """Worker-assembled host train batches, uploaded ahead of the step."""
+        it = self.train_set.batches(batch_size, num_workers=self.num_workers)
+        return prefetch_to_device(it, self.device)
+
+    def _train_step(self, batch):
+        return train_step(self.state, batch, self.step_generator(self.state.step), self.alpha, self.use_mse,
+                          device=self.device)
+
+    def check_determinism(self, batch_size: int = 1) -> None:
+        """Run the first train step twice from the same state, batch and
+        generator and require bitwise-equal parameters (the original
+        MVDeTr's ``--deterministic``, `main.py:43-46`); the state is put back
+        afterwards. Guards against a nondeterministic kernel on the path."""
+        batches = self._batches(batch_size)
+        batch = next(batches)
+        batches.close()
+        state = self.state
+        snap = (copy.deepcopy(state.model.state_dict()), copy.deepcopy(state.optimizer.state_dict()),
+                copy.deepcopy(state.scheduler.state_dict()), state.step)
+
+        def restore():
+            state.model.load_state_dict(snap[0])
+            # the optimizer keeps the tensors it is given and the step updates them in place
+            state.optimizer.load_state_dict(copy.deepcopy(snap[1]))
+            state.scheduler.load_state_dict(snap[2])
+            state.step = snap[3]
+
+        runs = []
+        for _ in range(2):
+            restore()
+            self._train_step(batch)
+            runs.append({n: p.detach().clone() for n, p in state.model.named_parameters()})
+        restore()
+        state.optimizer.zero_grad(set_to_none=True)
+        bad = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+        if bad:
+            raise RuntimeError(f"nondeterministic train step; first mismatching params: {bad[:5]}")
+        self.log("determinism check passed: train step is bitwise reproducible")
+
+    def train_epoch(self, epoch: int, batch_size: int = 1, log_interval: int = 100) -> float:
+        t0 = time.time()
+        losses_dev, count, aux = [], 0, {}  # device scalars; fetched only at log points
+        with contextlib.ExitStack() as trace:
+            profiling = False
+            for batch in self._batches(batch_size):
+                if self.profile_dir is not None and epoch == 1 and count == 1 and not profiling:
+                    float(losses_dev[-1])  # barrier: trace only steady-state work
+                    trace.enter_context(device_trace(self.profile_dir))
+                    profiling = True
+                self.state, aux = self._train_step(batch)
+                losses_dev.append(aux["loss"])
+                count += 1
+                if profiling and count >= 4:
+                    trace.close()  # synchronises, so the trace holds whole steps
+                    profiling = False
+                    self.log(f"profiler trace written to {self.profile_dir}")
+                if count % log_interval == 0:
+                    total = float(torch.stack(losses_dev).sum())
+                    clip = (f", clip_frac {float(aux['offset_clip_fraction']):.4f}"
+                            if "offset_clip_fraction" in aux else "")
+                    self.log(f"Train epoch {epoch} batch {count}: loss {total / count:.6f}{clip}, "
+                             f"t {time.time() - t0:.1f}s")
+            if profiling:  # epoch shorter than the trace window
+                trace.close()
+                self.log(f"profiler trace written to {self.profile_dir}")
+            elif self.profile_dir is not None and epoch == 1 and count < 2:
+                self.log(f"NOTE: --profile requested but epoch 1 had only {count} batch(es) — "
+                         "no trace was written (the window starts at batch 2)")
+        total = float(torch.stack(losses_dev).sum()) if losses_dev else 0.0
+        self.log(f"Train epoch {epoch} done: loss {total / max(count, 1):.6f}, t {time.time() - t0:.1f}s")
+        if count and "offset_clip_fraction" in aux:
+            clip_frac = float(aux["offset_clip_fraction"])
+            if clip_frac > 0.05:
+                self.log(
+                    f"WARNING: offset_clip_fraction {clip_frac:.3f} > 0.05 — the windowed "
+                    f"attention clamp is starving learned offsets (accuracy risk). Raise "
+                    f"--n_points to 8 (shadow refs, same fast path), or widen --attn_radius."
+                )
+        return total / max(count, 1)
+
+    def test(self, batch_size: int = 1, res_fpath: Optional[str] = None):
+        """Evaluate the test split: loss, detections (written to
+        ``res_fpath`` as ``%d`` rows) and CLEAR ``(loss, moda, modp,
+        precision, recall)``."""
+        t0 = time.time()
+        total, count, aux = 0.0, 0, {}
+        rows, cap_hits = [], 0
+        indexing_ij = self.train_set.rig.indexing == "ij"
+        host_batches = self.test_set.batches(batch_size, shuffle=False, drop_last=False,
+                                             num_workers=self.num_workers)
+        for batch in prefetch_to_device(host_batches, self.device):
+            aux, xys, keep = eval_step(self.state.model, batch, world_reduce=self.test_set.world_reduce,
+                                       num_candidates=self.nms_top_k, alpha=self.alpha, use_mse=self.use_mse,
+                                       device=self.device)
+            total += float(aux["loss"])
+            count += 1
+            new_rows, hits = detection_rows(xys.cpu().numpy(), keep.cpu().numpy(), np.asarray(batch["frame"]),
+                                            self.cls_thres, indexing_ij)
+            rows += new_rows
+            cap_hits += hits
+
+        if cap_hits:
+            self.log(
+                f"WARNING: eval top-K cap ({self.nms_top_k}) saturated on {cap_hits} frame(s) — "
+                "detections may be truncated; raise --nms_top_k"
+            )
+        if count and "offset_clip_fraction" in aux:
+            clip_frac = float(aux["offset_clip_fraction"])
+            self.log(f"Eval offset_clip_fraction {clip_frac:.4f}")
+            if clip_frac > 0.05:
+                self.log(
+                    "WARNING: >5% of attention offsets are clamped by the windowed radius "
+                    "at eval — results may diverge from reference-exact semantics; raise --attn_radius."
+                )
+        det = np.asarray(rows, dtype=np.float64).reshape(-1, 3)
+        if res_fpath is not None:
+            np.savetxt(res_fpath, det, "%d")
+        gt = self.test_set.gt_array()
+        # CLEAR matches on the integer-truncated rows as written to test.txt
+        # via np.savetxt('%d') (`trainer.py:158-159`)
+        recall, precision, moda, modp = clear_metrics(gt, np.floor(det) if len(det) else det)
+        self.log(
+            f"Test: loss {total / max(count, 1):.6f}, moda {moda:.1f}%, modp {modp:.1f}%, "
+            f"prec {precision:.1f}%, recall {recall:.1f}%, t {time.time() - t0:.1f}s"
+        )
+        return total / max(count, 1), moda, modp, precision, recall

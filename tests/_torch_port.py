@@ -27,3 +27,15 @@ def windowed_inputs(rng, b, l, h, w, m, d, p, c, lo, hi):
     wgt /= wgt.sum(axis=(-1, -2), keepdims=True)
     return value, off, wgt
 
+
+
+@pytest.fixture(scope="module")
+def few_torch_threads():
+    """Two intra-op threads for the module's tests, the previous count after.
+    The suite runs in several worker processes at once, and torch's default
+    (one OpenMP thread per core in each process) oversubscribes the cores:
+    a CPU epoch of a tiny model then takes minutes instead of seconds."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)

@@ -288,3 +288,55 @@ def test_two_train_steps_repeat_bitwise_on_card(cuda_device):
     assert runs[0][0] == runs[1][0]
     for n, (p, g) in runs[0][1].items():
         assert torch.equal(p, runs[1][1][n][0]) and torch.equal(g, runs[1][1][n][1]), n
+
+
+def test_prefetch_uploads_ahead_and_reraises_on_card(cuda_device):
+    """``prefetch_to_device`` on the card: pinned, ``non_blocking`` copies on
+    a side stream give the same values as a plain upload, ``frame`` stays
+    numpy, and an error of the host iterator re-raises on the consumer's
+    side after the batches before it."""
+    from mvdetr_tpu_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    items = [{"imgs": rng.integers(0, 256, (2, 3, 64, 96, 3), dtype=np.uint8), "frame": np.array([i, i + 1]),
+              "world_gt": {"heatmap": rng.standard_normal((2, 8, 8, 1)).astype(np.float32)}} for i in range(5)]
+
+    def host():
+        yield from items
+        raise OSError("disk gone")
+
+    got = []
+    with pytest.raises(OSError, match="disk gone"):
+        for item in prefetch_to_device(host(), cuda_device, size=2):
+            # consume on the default stream, as a step does
+            got.append({"imgs": item["imgs"].float().sum().item(), "frame": item["frame"],
+                        "heatmap": item["world_gt"]["heatmap"].cpu().numpy()})
+    assert len(got) == len(items)
+    for g, item in zip(got, items):
+        assert g["imgs"] == float(item["imgs"].astype(np.float64).sum()) and isinstance(g["frame"], np.ndarray)
+        np.testing.assert_array_equal(g["heatmap"], item["world_gt"]["heatmap"])
+
+
+def test_trainer_epoch_and_test_on_card(cuda_device, tmp_path):
+    """One epoch and a CLEAR test of the port's Trainer on the card from a
+    synthetic scene, checkpointed and restored bitwise."""
+    from mvdetr_tpu_torch.data import FrameDataset, SyntheticScene
+    from mvdetr_tpu_torch.train import Trainer, restore_checkpoint, save_checkpoint
+
+    rig = make_synthetic_rig(**RIG)
+    scene = SyntheticScene(rig, num_frame=6, num_person=4, seed=1)
+    kw = dict(world_reduce=2, img_reduce=12, top_k=8, world_kernel_size=4, img_kernel_size=4)
+    model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, device=cuda_device, seed=0)
+    state = create_train_state(model, lr=1e-3, total_steps=4)
+    trainer = Trainer(state, FrameDataset(scene, train=True, augmentation=True, **kw),
+                      FrameDataset(scene, train=False, **kw), cls_thres=0.3, num_workers=2, logger=lambda *a: None)
+    trainer.check_determinism(batch_size=2)
+    loss = trainer.train_epoch(1, batch_size=2)
+    assert np.isfinite(loss) and state.step == 2
+    result = trainer.test(batch_size=2, res_fpath=str(tmp_path / "test.txt"))
+    assert np.isfinite(result[0])
+    save_checkpoint(str(tmp_path / "ckpt"), state)
+    restored = restore_checkpoint(str(tmp_path / "ckpt"), create_train_state(
+        MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, device=cuda_device, seed=5), lr=1e-3, total_steps=4))
+    for key, value in state.model.state_dict().items():
+        assert torch.equal(restored.model.state_dict()[key], value), key

@@ -50,7 +50,9 @@ def test_package_and_chip_smoke_import_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("ops.msda_windowed", "ops.warp", "ops.sampling", "losses", "data.targets", "train.trainer",
-                 "train.optim", "train.state", "models.layers", "ops.lane_broadcast", "scripts.exp_vpu_broadcast"):
+                 "train.optim", "train.state", "models.layers", "ops.lane_broadcast", "scripts.exp_vpu_broadcast",
+                 "cli", "evaluation.clear", "native", "data.augment", "data.source", "data.dataset", "data.adapters",
+                 "data.prefetch", "utils.logger", "utils.profiling", "train.checkpoint"):
         assert f"mvdetr_tpu_torch.{name}" in report["imported"], name
 
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -120,3 +122,26 @@ def test_backward_kernels_use_no_atomics(name):
     sources name no atomic operation (CUDA's atomic*() or PTX atom/red)."""
     code = re.sub(r"//[^\n]*", "", (PACKAGE / "csrc" / f"{name}.cu").read_text())
     assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)
+
+
+def _all_imports(path: Path):
+    """Every module an import statement in ``path`` names, with its line."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((alias.name.split(".")[0], node.lineno) for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_data_path_imports_no_cv2_or_pil_but_for_the_image_decode():
+    """The card's machine has neither cv2 nor PIL: no module of the port's
+    data path imports them, except ``data/adapters.py``'s ``load_image_rgb``
+    (real datasets' JPEGs, which raises a clear error without both)."""
+    for path in sorted((PACKAGE / "data").rglob("*.py")) + sorted((PACKAGE / "native").rglob("*.py")):
+        found = [(name, line) for name, line in _all_imports(path) if name in ("cv2", "PIL")]
+        if path.name == "adapters.py":
+            tree = ast.parse(path.read_text())
+            decode = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "load_image_rgb")
+            assert found and all(decode.lineno <= line <= decode.end_lineno for _, line in found), found
+        else:
+            assert not found, f"{path.relative_to(ROOT)} imports {found}"

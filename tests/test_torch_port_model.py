@@ -209,7 +209,7 @@ def test_whole_forward_matches_jax(setup, dtype):
 def test_training_mode_and_other_variants_raise(setup):
     """Training mode draws dropout masks from a generator that the train
     step sets: called without one, the forward raises. The variants of
-    ROADMAP A8 raise at construction."""
+    ROADMAP item A.7 raise at construction."""
     port = setup["port"]
     try:
         with pytest.raises(ValueError, match="generator"):
@@ -218,5 +218,5 @@ def test_training_mode_and_other_variants_raise(setup):
         port.eval()
     rig = make_synthetic_rig(**RIG)
     for kw in (dict(world_feat_arch="conv"), dict(attn_mode="gather"), dict(n_points=8)):
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP item A\.7"):
             MVDeTr.from_rig(rig, world_reduce=WORLD_REDUCE, device="cpu", **kw)
