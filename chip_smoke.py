@@ -35,6 +35,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    f32 at the coordinates of the CLI recipe's and the convergence rigs'
    homographies (g [4, 1800, 128] -> 15x27); bitwise repeat; ``grad_input`` of ``aten.grid_sampler_2d_backward`` timed beside
    it; kernels and plain versions timed with CUDA events;
+4b. the 8-point shadow path's kernel shapes: B1 and B2 over the 56
+   pseudo-levels of one point of the bench rig's shadow stack (B=2, C=7,
+   60x180, M=8, D=16, R=4; random offsets past the clamp, and the radial
+   init of 7 cameras x 8 points shifted by integers; each timed, B2 also by
+   side; untimed at B=1 and B=4) and over the recipe's 32 (B=1, C=4,
+   15x30); B3 at the bench rig's 8-point shadow coordinates (g [14, 86400,
+   128] -> 60x180) in bf16, timed,
+   with its segment statistics, device time by stage and the library call,
+   and in f32, and at the recipe rig's in f32; every case against its plain
+   version with a bitwise repeat;
 5. B5, the lane broadcast / reduce experiment: each of its six variants
    against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
    the largest output), the variants against each other (``repeat`` tiles,
@@ -58,6 +68,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    same state and generator give bitwise-equal parameters and gradients
    with PyTorch's default algorithms (required), and with
    ``torch.use_deterministic_algorithms`` (reported, with both step times);
+8b. serving (1 + 3 requests: B1 3 times each, B2 and B3 none) and training
+   (1 + 5 steps: B1 and B2 3 times each, B3 4 times: the camera warp and
+   each encoder layer's shadow warp) of the ``n_points=8`` model at the same
+   width, bf16, batch 2 (warped attention), with profiles of a request and a
+   step and the bitwise repeat of two steps (required);
 9. B3's device time at the flagship by stage and by device activity, from
    torch.profiler after the serve and train profiles: all but one memset of
    its sort must be kernels named ``warp_bwd``, and B3's share of the step
@@ -68,7 +83,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (``EpochProbe``):
     (a) the synthetic recipe of the repo's verify notes (``SKILL.md``) through ``cli.main``
     (10 epochs of the synthetic scene, ``--deterministic true``): the
-    determinism check must pass and the last epoch's MODA reach 80;
+    determinism check must pass and the last epoch's MODA reach 80; then the
+    same recipe with ``--n_points 8`` (warped attention, B3 4 times per
+    train step), under the same gates;
     (b) ``tests/test_convergence.py``'s contract through ``Trainer`` on its xy
     and ij rigs: MODA >= 85, precision >= 90, the last epoch's loss below
     half the first;
@@ -79,7 +96,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     host's thread time per frame set by data stage (epoch 1 renders the
     scene, epoch 2 reads the cache);
 11. one JSON line with each kernel's launches (by path: serve, train, cli,
-    trainer, experiment), error, times and bound.
+    trainer, experiment, and shadow: the n_points-8 serve, train and recipe
+    runs), error, times and bound, and B1/B2/B3's times at the shadow shapes
+    (``*_shadow``).
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -213,10 +232,12 @@ def train_batch(rig, batch_size, world_reduce, img_reduce, seed, num_person=20, 
             "imgs_gt": {k: np.stack([g[k] for g in imgs_gt]) for k in imgs_gt[0]}}
 
 
-def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None):
+def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None, init=None):
     """bf16 value, f32 offsets (uniform past the clamp, or the radial init
     shifted by integers) and softmax weights, on the card; ``c`` cameras
-    (default ``l``)."""
+    (default ``l``). ``init``: the (levels, points) the radial init is drawn
+    for, laid out as the ``l`` levels of ``p`` points (default ``(l, p)``;
+    the shadow stack's 56 pseudo-levels of one point take 7 cameras' 8)."""
     import torch
 
     from mvdetr_tpu_torch.models.deformable import radial_offset_bias
@@ -224,7 +245,7 @@ def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None):
     c = l if c is None else c
     value = torch.from_numpy(rng.standard_normal((b, l, h, w, m, d), dtype=np.float32))
     if integer:
-        off = radial_offset_bias(m, l, p, max_radius=radius).reshape(m, l, p, 2) + rng.integers(
+        off = radial_offset_bias(m, *(init or (l, p)), max_radius=radius).reshape(m, l, p, 2) + rng.integers(
             -2, 3, (b, c, h, w, m, l, p, 2))
     else:
         off = rng.uniform(-radius - 2.0, radius + 2.0, (b, c, h, w, m, l, p, 2))
@@ -233,7 +254,7 @@ def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None):
     return value.cuda().to(torch.bfloat16), torch.from_numpy(off.astype(np.float32)).cuda(), wgt.cuda()
 
 
-def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
+def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, init=None):
     """B1 vs its plain version on the card at one shape (``c`` cameras,
     default ``l``); two launches must be bitwise equal. Returns a record."""
     import torch
@@ -241,7 +262,7 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
     from mvdetr_tpu_torch.ops.msda_windowed import _fwd_plan, _value_align, ms_deform_attn_windowed, msda_windowed_fwd
 
     c = l if c is None else c
-    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c)
+    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c, init=init)
     out = msda_windowed_fwd(v, o, wg, radius)
     again = msda_windowed_fwd(v, o, wg, radius)
     ref = ms_deform_attn_windowed(v, o, wg, radius, flatten=False)
@@ -265,7 +286,7 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
     return rec
 
 
-def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
+def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, init=None):
     """B2 vs the plain backward on the card at one shape (``c`` cameras,
     default ``l``); when ``timed``, the whole launch, its value side and its
     query side are timed, each beside its bound (``timed="query"``: the
@@ -275,7 +296,7 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None):
     from mvdetr_tpu_torch.ops.msda_windowed import _query_plan, ms_deform_attn_windowed_bwd, msda_windowed_bwd
 
     c = l if c is None else c
-    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c)
+    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c, init=init)
     g = torch.from_numpy(rng.standard_normal((b, c, h, w, m * d), dtype=np.float32)).cuda()
     out = msda_windowed_bwd(v, o, wg, g, radius)
     again = msda_windowed_bwd(v, o, wg, g, radius)
@@ -605,6 +626,75 @@ def warp_profile(b3, rig, batch, step_warp_kernels_ms: float) -> None:
     torch.cuda.empty_cache()
 
 
+def shadow_warp_inputs(rng, rig=None, batch_size=2, dtype=None, device="cuda") -> dict:
+    """B3's inputs on the shadow path: the pixel coordinates of a rig's
+    8-point reference map (the bench rig's unless given) on its encoder grid,
+    repeated over the batch as ``shadow_warp_stack`` repeats them, and g
+    [B * cameras, H*W*8, 128] from ``rng`` in ``dtype`` (bf16 unless given),
+    on the card by default. ``bev_hw`` lays the H*W*8 samples out as an
+    (8H) x W grid for the library call."""
+    import torch
+
+    from mvdetr_tpu_torch.ops.msda_warped import shadow_coords
+
+    rig = bench_rig() if rig is None else rig
+    hb, wb = rig.Rworld_shape(4)
+    h, w = hb // 2, wb // 2
+    coords = shadow_coords(rig.reference_points(world_reduce=4, downsample=2, n_points=8), h, w).to(device)
+    sx, sy = coords[0].repeat(batch_size, 1), coords[1].repeat(batch_size, 1)
+    g = torch.from_numpy(rng.standard_normal((sx.shape[0], sx.shape[1], 128), dtype=np.float32)).to(
+        device, torch.bfloat16 if dtype is None else dtype)
+    return {"g": g, "sx": sx, "sy": sy, "h": h, "w": w, "bev_hw": (8 * h, w)}
+
+
+def shadow_kernel_phase(rng, rig) -> dict:
+    """B1, B2 and B3 at the shapes of the 8-point shadow path: B1 and B2 over
+    the bench rig's 56 pseudo-levels (random offsets past the clamp, and the
+    radial init of 7 cameras x 8 points shifted by integers; timed, B2 also
+    by side), untimed at B=1 and B=4, and the recipe's 32, untimed; B3 at
+    the bench rig's shadow coordinates in bf16 (timed, with its segments, its
+    device time by stage and the library call) and in f32, and at the recipe
+    rig's in f32.
+    Returns a record per kernel, errors under ``"errs"``."""
+    import torch
+
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    b1 = fwd_case("shadow-random", **SHADOW_ATTENTION, integer=False, rng=rng, timed=True)
+    b1_int = fwd_case("shadow-integer", **SHADOW_ATTENTION, integer=True, rng=rng, timed=True)
+    b2 = bwd_case("shadow-random", **SHADOW_ATTENTION, integer=False, rng=rng, timed=True)
+    b2_int = bwd_case("shadow-integer", **SHADOW_ATTENTION, integer=True, rng=rng, timed=True)
+    b1.update(errs=[b1["err"], b1_int["err"]], ms_integer=b1_int["ms"])
+    b2.update(errs=[b2["err"], b2_int["err"]], ms_integer=b2_int["ms"])
+    for batch_size in (1, 4):  # the block counts and 64-bit indices at other batches
+        shape = dict(SHADOW_ATTENTION, b=batch_size)
+        b1["errs"].append(fwd_case(f"shadow-B{batch_size}", **shape, integer=False, rng=rng, timed=False)["err"])
+        b2["errs"].append(bwd_case(f"shadow-B{batch_size}", **shape, integer=False, rng=rng, timed=False)["err"])
+    for integer in (False, True):
+        label = f"recipe-shadow-{'integer' if integer else 'random'}"
+        b1["errs"].append(fwd_case(label, **RECIPE_SHADOW_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
+        b2["errs"].append(bwd_case(label, **RECIPE_SHADOW_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
+    torch.cuda.empty_cache()
+
+    c = shadow_warp_inputs(rng, rig)
+    seg = warp_segment_stats(c["sx"], c["sy"], c["h"], c["w"])
+    print(f"B3 shadow segments: {seg['nonempty']} of {seg['cells']} cells get a tap, {seg['entries_inside']} of "
+          f"{seg['entries']} entries inside; entries per non-empty cell mean {seg['mean']:.2f}, p90 "
+          f"{seg['p90']:.0f}, p99 {seg['p99']:.0f}, largest {seg['max']}")
+    b3 = warp_case("shadow-bf16", c["g"], c["sx"], c["sy"], c["h"], c["w"], bev_hw=c["bev_hw"])
+    b3["segments"] = seg
+    b3["device_ms"] = warp_stage_ms(lambda: warp_bwd(c["g"], c["sx"], c["sy"], c["h"], c["w"]))
+    print("B3 shadow device time by stage: " + ", ".join(f"{k} {v:.4f} ms" for k, v in b3["device_ms"].items()))
+    c32 = dict(c, g=c["g"].float())
+    b3["errs"] = [b3["err"], warp_case("shadow-f32", c32["g"], c["sx"], c["sy"], c["h"], c["w"])["err"]]
+    del c, c32
+    r = shadow_warp_inputs(rng, make_synthetic_rig(**CONVERGENCE_RIGS["xy"]), batch_size=1, dtype=torch.float32)
+    b3["errs"].append(warp_case("recipe-shadow-f32", r["g"], r["sx"], r["sy"], r["h"], r["w"])["err"])
+    torch.cuda.empty_cache()
+    return {"b1": b1, "b2": b2, "b3": b3}
+
+
 def lane_phase() -> dict:
     """B5: each variant against its plain version and the variants against
     each other at both sizes, then the experiment's entry point as the
@@ -762,24 +852,30 @@ def profile_table(label, fn, wall_ms, names):
     return ours
 
 
-def serve_full_width(rig):
+def serve_full_width(rig, n_points=4):
+    """Serve 1 + 3 requests of the ``n_points`` model; every request must
+    launch B1 3 times and B2 and B3 no time. Returns the launches by kernel
+    name."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
-    from mvdetr_tpu_torch.ops.msda_windowed import msda_windowed_fwd
     from mvdetr_tpu_torch.train import eval_step
 
     batch_size, n_timed = 2, 3
+    label = "serve" if n_points == 4 else f"serve n_points={n_points}"
+    mode = "windowed" if n_points == 4 else "warped"
+    wrappers = main_path_launches()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16,
-                            attn_radius=4, n_points=4, device="cuda", seed=0)
+                            attn_radius=4, n_points=n_points, device="cuda", seed=0)
     perturb_attention(model, seed=1)
-    check(model.world_feat.mode == "windowed", f"attention mode {model.world_feat.mode}, expected windowed")
+    check(model.world_feat.mode == mode, f"attention mode {model.world_feat.mode}, expected {mode}")
     rng = np.random.default_rng(0)
     batch = {"imgs": rng.integers(0, 256, (batch_size, 7, 720, 1280, 3), dtype=np.uint8),
              "affine_mats": np.tile(np.eye(3, dtype=np.float32), (batch_size, 7, 1, 1))}
 
     torch.cuda.reset_peak_memory_stats()
-    msda_windowed_fwd.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     latencies = []
     for _ in range(1 + n_timed):
         t0 = time.perf_counter()
@@ -787,39 +883,40 @@ def serve_full_width(rig):
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         check(tuple(xys.shape) == (batch_size, 512, 3) and tuple(keep.shape) == (batch_size, 512),
-              f"serve: shapes {tuple(xys.shape)}, {tuple(keep.shape)}")
-        check(bool(torch.isfinite(xys).all()), "serve: non-finite detections")
-        check(keep.dtype == torch.bool and int(keep.sum()) > 0, "serve: no detection kept")
-    launches = msda_windowed_fwd.launches
-    check(launches == 3 * (1 + n_timed), f"serve: B1 launched {launches} times in {1 + n_timed} requests")
+              f"{label}: shapes {tuple(xys.shape)}, {tuple(keep.shape)}")
+        check(bool(torch.isfinite(xys).all()), f"{label}: non-finite detections")
+        check(keep.dtype == torch.bool and int(keep.sum()) > 0, f"{label}: no detection kept")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    expected = {"msda_windowed_fwd": 3 * (1 + n_timed), "msda_windowed_bwd": 0, "warp_bwd": 0}
+    check(launches == expected, f"{label}: launches {launches} in {1 + n_timed} requests, expected {expected}")
     timed = latencies[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"serve: warm-up {latencies[0]:.1f} ms, timed requests (ms) {[round(t, 3) for t in timed]}, "
-          f"median {med:.3f} ms (with F.interpolate: {INTERP_SERVE_MS} ms), "
-          f"{batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
-    print(f"serve: kept detections per frame set {keep.sum(1).tolist()}, offset_clip_fraction "
-          f"{float(aux['offset_clip_fraction']):.4f}, B1 launches {launches} in {1 + n_timed} requests")
-    profile_table("serve", lambda: eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0),
-                  med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",)})
+    print(f"{label}: warm-up {latencies[0]:.1f} ms, timed requests (ms) {[round(t, 3) for t in timed]}, "
+          f"median {med:.3f} ms" + (f" (with F.interpolate: {INTERP_SERVE_MS} ms)" if n_points == 4 else "")
+          + f", {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
+    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}, offset_clip_fraction "
+          f"{float(aux['offset_clip_fraction']):.4f}, launches {launches} in {1 + n_timed} requests")
+    profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0),
+                  med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), **GATHER_LABEL})
     return launches
 
 
-def train_full_width(rig, batch):
-    """Returns the launch counts of the counted run, by kernel name, and the
-    step profile's device time by kernel label."""
+def train_full_width(rig, batch, n_points=4):
+    """1 + 5 train steps of the ``n_points`` model, each launching B1 and B2
+    3 times and B3 once for the camera warp and, at n_points 8, once more
+    per encoder layer for the shadow warp. Returns the launch counts by
+    kernel name and the step profile's device time by kernel label."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
-    from mvdetr_tpu_torch.ops.msda_windowed import msda_windowed_bwd, msda_windowed_fwd
-    from mvdetr_tpu_torch.ops.warp import warp_bwd
     from mvdetr_tpu_torch.train import batch_to_device, create_train_state, train_step
 
     batch_size, n_timed = 2, 5
-    wrappers = {"msda_windowed_fwd": msda_windowed_fwd, "msda_windowed_bwd": msda_windowed_bwd,
-                "warp_bwd": warp_bwd}
+    label = "train" if n_points == 4 else f"train n_points={n_points}"
+    wrappers = main_path_launches()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
-                            n_points=4, device="cuda", seed=0)
+                            n_points=n_points, device="cuda", seed=0)
     state = create_train_state(model, lr=LR, total_steps=TOTAL_STEPS)
     batch = batch_to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -835,22 +932,24 @@ def train_full_width(rig, batch):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(aux["loss"]))
-        check(math.isfinite(losses[-1]), f"train: loss {losses[-1]} at step {state.step}")
+        check(math.isfinite(losses[-1]), f"{label}: loss {losses[-1]} at step {state.step}")
     launches = {name: fn.launches for name, fn in wrappers.items()}
     steps = 1 + n_timed
-    expected = {"msda_windowed_fwd": 3 * steps, "msda_windowed_bwd": 3 * steps, "warp_bwd": steps}
-    check(launches == expected, f"train: launches {launches} in {steps} steps, expected {expected}")
+    expected = {"msda_windowed_fwd": 3 * steps, "msda_windowed_bwd": 3 * steps,
+                "warp_bwd": warps_per_step(n_points) * steps}
+    check(launches == expected, f"{label}: launches {launches} in {steps} steps, expected {expected}")
     timed = times[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"train: warm-up {times[0]:.1f} ms, timed steps (ms) {[round(t, 3) for t in timed]}, median {med:.3f} ms "
-          f"(with F.interpolate: {INTERP_TRAIN_MS} ms), {batch_size / (med / 1e3):.3f} frame-sets/s, "
-          f"peak memory {peak:.2f} GiB")
-    print(f"train: losses {[round(v, 5) for v in losses]}, last step "
+    print(f"{label}: warm-up {times[0]:.1f} ms, timed steps (ms) {[round(t, 3) for t in timed]}, median {med:.3f} ms"
+          + (f" (with F.interpolate: {INTERP_TRAIN_MS} ms)" if n_points == 4 else "")
+          + f", {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
+    print(f"{label}: losses {[round(v, 5) for v in losses]}, last step "
           + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches} in {steps} steps")
-    ours = profile_table("train", lambda: train_step(state, batch, gen), med,
+    ours = profile_table(label, lambda: train_step(state, batch, gen), med,
                          {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "msda_windowed_bwd": ("msda_bwd_",),
-                          "warp_bwd": ("warp_bwd",)})  # B3's four stages, CUB's sort kernels among them
+                          "warp_bwd": ("warp_bwd",),  # B3's four stages, CUB's sort kernels among them
+                          **GATHER_LABEL})
 
     # two steps from the same state and generator, with PyTorch's default
     # algorithms (must be bitwise equal) and with deterministic ones (reported)
@@ -876,15 +975,16 @@ def train_full_width(rig, batch):
                      {n: p.grad.clone() for n, p in model.named_parameters()}, float(aux["loss"]), ms,
                      sorted({str(w.message)[:160] for w in caught})))
     verdict = {}
-    for label, (a, b) in (("default algorithms", runs[:2]), ("deterministic algorithms", runs[2:])):
+    for kind, (a, b) in (("default algorithms", runs[:2]), ("deterministic algorithms", runs[2:])):
         differ = [n for n in a[0] if not torch.equal(a[0][n], b[0][n])]
         grads_differ = [n for n in a[1] if not torch.equal(a[1][n], b[1][n])]
-        verdict[label] = not differ and not grads_differ and a[2] == b[2]
-        print(f"train, {label}: two steps from the same state and generator give bitwise-equal parameters: "
+        verdict[kind] = not differ and not grads_differ and a[2] == b[2]
+        print(f"{label}, {kind}: two steps from the same state and generator give bitwise-equal parameters: "
               f"{not differ}; gradients: {not grads_differ}; losses equal: {a[2] == b[2]}; {len(differ)} of "
               f"{len(a[0])} parameter leaves and {len(grads_differ)} gradient leaves differ, the last in forward "
               f"order {grads_differ[::-1][:6]}; step {a[3]:.1f} and {b[3]:.1f} ms; warnings {a[4] + b[4]}")
-    check(verdict["default algorithms"], "train: two steps with PyTorch's default algorithms are not bitwise equal")
+    check(verdict["default algorithms"], f"{label}: two steps with PyTorch's default algorithms are not bitwise "
+          "equal")
     return launches, ours
 
 
@@ -893,9 +993,18 @@ def train_full_width(rig, batch):
 RECIPE = ["-d", "synthetic", "--epochs", "10", "--synthetic_frames", "12", "--augmentation", "true", "--world_feat",
           "deform_trans", "--lr", "1e-3", "--cls_thres", "0.4", "-j", "4", "--deterministic", "true"]
 RECIPE_MODA = 80.0
+# the same recipe with the 8-point shadow reference maps (warped attention); its MODA gate is the JAX package's
+# figure for --n_points 8 in its verify notes (SKILL.md)
+RECIPE_SHADOW = RECIPE + ["--n_points", "8"]
 # B1/B2's shape on the recipe's and the convergence rigs' path: 4 cameras, a 120x240 grid at world_reduce 4
 # (30x60 BEV, 15x30 encoder grid), batch 1
 RECIPE_ATTENTION = dict(b=1, l=4, h=15, w=30, m=8, d=16, p=4, radius=4)
+# the 8-point shadow path: B1/B2 over the stack's L*P pseudo-levels of one point each, at the bench rig's shape
+# (7 cameras x 8 points = 56) and the recipe's (4 x 8 = 32), offsets at integers drawn from the model's radial init
+SHADOW_ATTENTION = dict(b=2, l=56, c=7, h=60, w=180, m=8, d=16, p=1, radius=4, init=(7, 8))
+RECIPE_SHADOW_ATTENTION = dict(b=1, l=32, c=4, h=15, w=30, m=8, d=16, p=1, radius=4, init=(4, 8))
+# the warp's forward gathers (the camera warp's and, in warped mode, the shadow warp's): index_select's kernel
+GATHER_LABEL = {"index_select (warp gathers)": ("vectorized_gather_kernel", "indexSelect")}
 # tests/test_convergence.py: its rigs, recipe and bounds
 CONVERGENCE_RIGS = {
     "xy": dict(num_cam=4, img_shape=(180, 320), worldgrid_shape=(120, 240)),
@@ -1035,6 +1144,12 @@ class EpochProbe:
         self._saved.clear()
 
 
+def warps_per_step(n_points: int) -> int:
+    """B3 launches per train step: the camera warp's, and at n_points 8 the
+    shadow warp's of each of the 3 encoder layers."""
+    return 1 if n_points == 4 else 4
+
+
 def main_path_launches() -> dict:
     from mvdetr_tpu_torch.ops.msda_windowed import msda_windowed_bwd, msda_windowed_fwd
     from mvdetr_tpu_torch.ops.warp import warp_bwd
@@ -1042,11 +1157,12 @@ def main_path_launches() -> dict:
     return {"msda_windowed_fwd": msda_windowed_fwd, "msda_windowed_bwd": msda_windowed_bwd, "warp_bwd": warp_bwd}
 
 
-def counted_run(label, probe, fn):
+def counted_run(label, probe, fn, n_points=4):
     """Run ``fn`` with every kernel's count set to 0 just before and read
-    just after: B1/B2/B3 must launch 3/3/1 times per train step and B1 3
-    times per eval batch, each B5 variant no time. Returns ``(fn's result,
-    launches by kernel)``, B5's under ``lane_broadcast:<variant>``."""
+    just after: B1/B2/B3 must launch 3/3/``warps_per_step(n_points)`` times
+    per train step and B1 3 times per eval batch, each B5 variant no time.
+    Returns ``(fn's result, launches by kernel)``, B5's under
+    ``lane_broadcast:<variant>``."""
     from mvdetr_tpu_torch.ops import lane_broadcast as lb
 
     wrappers = main_path_launches()
@@ -1060,7 +1176,8 @@ def counted_run(label, probe, fn):
     b5 = lb.lane_broadcast.launches + lb.lane_reduce.launches
     launches.update({f"{lb.KERNEL_NAME}:{v}": b5[v] for v in lb.VARIANTS})
     steps, evals = probe.train_steps - steps0, probe.eval_steps - evals0
-    expected = {"msda_windowed_fwd": 3 * (steps + evals), "msda_windowed_bwd": 3 * steps, "warp_bwd": steps,
+    expected = {"msda_windowed_fwd": 3 * (steps + evals), "msda_windowed_bwd": 3 * steps,
+                "warp_bwd": warps_per_step(n_points) * steps,
                 **{f"{lb.KERNEL_NAME}:{v}": 0 for v in lb.VARIANTS}}
     print(f"{label}: {steps} train steps, {evals} eval batches; launches {launches} (expected {expected})")
     check(steps > 0 and evals > 0 and launches == expected, f"{label}: launches {launches}, expected {expected}")
@@ -1092,20 +1209,24 @@ def run_cli(argv):
     return trainer, log
 
 
-def recipe_phase(probe) -> dict:
-    """(a) SKILL.md's recipe through ``cli.main``: the determinism check must
-    pass and the last epoch's MODA reach RECIPE_MODA."""
+def recipe_phase(probe, argv=RECIPE, n_points=4) -> dict:
+    """(a) SKILL.md's recipe through ``cli.main`` (at ``n_points`` 8 with
+    ``argv=RECIPE_SHADOW``): the determinism check must pass and the last
+    epoch's MODA reach RECIPE_MODA."""
+    label = "cli recipe" if n_points == 4 else f"cli recipe n_points={n_points}"
     probe.tests = []
     t0 = time.perf_counter()
-    (trainer, log), launches = counted_run("cli recipe", probe, lambda: run_cli(RECIPE))
+    (trainer, log), launches = counted_run(label, probe, lambda: run_cli(argv), n_points=n_points)
     wall = time.perf_counter() - t0
+    mode = trainer.state.model.world_feat.mode
     modas = [round(t[1], 1) for t in probe.tests]
-    print(f"cli recipe ({' '.join(RECIPE)}): {wall:.1f} s; MODA by epoch {modas[:-1]}, then the reloaded model "
-          f"{modas[-1]}; last epoch loss {probe.tests[-2][0]:.4f}, precision {probe.tests[-2][3]:.1f}, recall "
-          f"{probe.tests[-2][4]:.1f}")
-    check("determinism check passed" in log, "cli recipe: the determinism check did not pass")
-    check(len(probe.tests) == 11 and probe.tests[-1] == probe.tests[-2], "cli recipe: tests do not repeat")
-    check(probe.tests[-2][1] >= RECIPE_MODA, f"cli recipe: MODA {probe.tests[-2][1]} < {RECIPE_MODA}")
+    print(f"{label} ({' '.join(argv)}): {mode} attention, {wall:.1f} s; MODA by epoch {modas[:-1]}, then the "
+          f"reloaded model {modas[-1]}; last epoch loss {probe.tests[-2][0]:.4f}, precision "
+          f"{probe.tests[-2][3]:.1f}, recall {probe.tests[-2][4]:.1f}")
+    check(mode == ("windowed" if n_points == 4 else "warped"), f"{label}: {mode} attention")
+    check("determinism check passed" in log, f"{label}: the determinism check did not pass")
+    check(len(probe.tests) == 11 and probe.tests[-1] == probe.tests[-2], f"{label}: tests do not repeat")
+    check(probe.tests[-2][1] >= RECIPE_MODA, f"{label}: MODA {probe.tests[-2][1]} < {RECIPE_MODA}")
     return launches
 
 
@@ -1244,6 +1365,7 @@ def main() -> int:
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
     b3 = warp_phase(rng, rig, batch)
+    shadow = shadow_kernel_phase(rng, rig)
     b5 = lane_phase()
 
     small_model_card_vs_cpu()
@@ -1252,27 +1374,41 @@ def main() -> int:
     train_launches, step_profile = train_full_width(rig, batch)
     warp_profile(b3, rig, batch, step_profile[warp.KERNEL_NAME])
     torch.cuda.empty_cache()
+    # the 8-point shadow configuration at the same width: warped attention, B3 also on each layer's shadow warp
+    shadow_serve_launches = serve_full_width(rig, n_points=8)
+    torch.cuda.empty_cache()
+    shadow_train_launches, _ = train_full_width(rig, batch, n_points=8)
+    torch.cuda.empty_cache()
 
     probe = EpochProbe().install()
     try:
         recipe_launches = recipe_phase(probe)
+        shadow_recipe_launches = recipe_phase(probe, RECIPE_SHADOW, n_points=8)
         trainer_launches = convergence_phase(probe)
         wildtrack = wildtrack_cli_phase(probe)
     finally:
         probe.uninstall()
     cli_launches = {k: recipe_launches[k] + wildtrack["launches"][k] for k in recipe_launches}
+    shadow_by_path = {name: {"serve": shadow_serve_launches[name], "train": shadow_train_launches[name],
+                             "cli": shadow_recipe_launches[name]} for name in shadow_serve_launches}
+    print(f"shadow path launches by kernel and path: {shadow_by_path}")
+    for name, by_path in shadow_by_path.items():
+        check(sum(by_path.values()) > 0, f"shadow path: {name} launched no time")
 
     records = [
-        (msda_windowed.KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel.py:95", b1, b1_errs,
-         {"serve": serve_launches, "train": train_launches[msda_windowed.KERNEL_NAME],
+        (msda_windowed.KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel.py:95", b1, b1_errs + shadow["b1"]["errs"],
+         {"serve": serve_launches[msda_windowed.KERNEL_NAME], "train": train_launches[msda_windowed.KERNEL_NAME],
           "cli": cli_launches[msda_windowed.KERNEL_NAME], "trainer": trainer_launches[msda_windowed.KERNEL_NAME]}),
-        (msda_windowed.BWD_KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel_bwd.py:43", b2, b2_errs,
+        (msda_windowed.BWD_KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel_bwd.py:43", b2,
+         b2_errs + shadow["b2"]["errs"],
          {"train": train_launches[msda_windowed.BWD_KERNEL_NAME], "cli": cli_launches[msda_windowed.BWD_KERNEL_NAME],
           "trainer": trainer_launches[msda_windowed.BWD_KERNEL_NAME]}),
-        (warp.KERNEL_NAME, "mvdetr_tpu/ops/pallas/warp_bwd.py:43", b3, b3["errs"],
+        (warp.KERNEL_NAME, "mvdetr_tpu/ops/pallas/warp_bwd.py:43", b3, b3["errs"] + shadow["b3"]["errs"],
          {"train": train_launches[warp.KERNEL_NAME], "cli": cli_launches[warp.KERNEL_NAME],
           "trainer": trainer_launches[warp.KERNEL_NAME]}),
     ]
+    for name, _, _, _, by_path in records:
+        by_path["shadow"] = sum(shadow_by_path[name].values())
     rows = [{
         "name": name,
         "route": "cuda",
@@ -1294,6 +1430,15 @@ def main() -> int:
                                        "value_ms_integer", "query_ms_integer", "query_ms_R16")})
     # B3: its device time by stage, the flagship's segments
     rows[2].update({k: b3[k] for k in ("device_ms", "memset_ms", "step_ms", "segments")})
+    # the shadow path: launches by path, and each kernel's times at the shadow shape beside its bound
+    for row, key in zip(rows, ("b1", "b2", "b3")):
+        rec = shadow[key]
+        row["shadow_launches_by_path"] = shadow_by_path[row["name"]]
+        row.update({f"{k}_shadow": rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+    rows[0]["ms_integer_shadow"] = shadow["b1"]["ms_integer"]
+    rows[1].update({f"{k}_shadow": shadow["b2"][k] for k in ("value_ms", "query_ms", "value_bound_ms",
+                                                             "query_bound_ms", "ms_integer")})
+    rows[2].update({f"{k}_shadow": shadow["b3"][k] for k in ("library_ms", "device_ms", "segments")})
     # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
     tile, big = sorted(b5["matmul"]["by_T"])
     rows += [{

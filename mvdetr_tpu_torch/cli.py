@@ -15,14 +15,16 @@ plus ``--device`` (default ``cuda``; the run raises without a card unless
 before any work: ``--view_shards``/``--bev_shards`` > 1 and the multi-host
 flags (ROADMAP item A.9), ``--load_torch_ckpt`` (A.6), ``--visualize``
 (A.5), ``--arch vgg11``, ``--world_feat`` other than ``deform_trans``,
-``--attn_mode gather|warped``, ``--n_points 8`` and ``--remat_backbone``
-(A.7). ``--reID`` and ``--id_ratio`` are accepted and, as in the JAX
+``--attn_mode gather`` and ``--remat_backbone`` (A.7). ``--n_points 8``
+(the shadow reference maps, ``warped`` attention) and ``--attn_mode
+windowed|warped`` run. ``--reID`` and ``--id_ratio`` are accepted and, as in the JAX
 package, only name the logdir.
 
 Usage::
 
     python -m mvdetr_tpu_torch.cli -d synthetic --epochs 10 --synthetic_frames 12 --lr 1e-3 --cls_thres 0.4
     python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --epochs 1 --synthetic_frames 4
+    python -m mvdetr_tpu_torch.cli -d synthetic --n_points 8 --epochs 10 --synthetic_frames 12 --lr 1e-3 --cls_thres 0.4
 """
 
 from __future__ import annotations
@@ -91,9 +93,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num_processes", type=int, default=None, help="multi-host (not ported)")
     parser.add_argument("--process_id", type=int, default=None, help="multi-host (not ported)")
     parser.add_argument("--bf16", type=str2bool, default=False, help="bfloat16 compute (params stay f32)")
-    parser.add_argument("--attn_mode", type=str, default="auto", choices=["auto", "gather", "windowed", "warped"])
+    parser.add_argument("--attn_mode", type=str, default="auto", choices=["auto", "gather", "windowed", "warped"],
+                        help="deformable-attention sampling; auto = windowed for n_points 4, warped for 8 "
+                             "(gather: not ported)")
     parser.add_argument("--n_points", type=int, default=4, choices=[4, 8],
-                        help="deformable points per (head, level); 8 = shadow reference maps (not ported)")
+                        help="deformable points per (head, level); 8 = shadow reference maps")
     parser.add_argument("--attn_radius", type=int, default=None,
                         help="windowed-attention clamp radius in BEV cells (default 4)")
     parser.add_argument("--nms_top_k", type=int, default=512,
@@ -132,8 +136,7 @@ def check_ported(args) -> None:
         "--visualize (ROADMAP item A.5)": args.visualize,
         "--arch vgg11 (ROADMAP item A.7)": args.arch != "resnet18",
         f"--world_feat {args.world_feat} (ROADMAP item A.7)": args.world_feat != "deform_trans",
-        f"--attn_mode {args.attn_mode} (ROADMAP item A.7)": args.attn_mode in ("gather", "warped"),
-        "--n_points 8 (ROADMAP item A.7)": args.n_points != 4,
+        "--attn_mode gather (ROADMAP item A.7)": args.attn_mode == "gather",
         "--remat_backbone (ROADMAP item A.7)": args.remat_backbone,
     }
     missing = [flag for flag, used in unported.items() if used]

@@ -1,11 +1,19 @@
 """Deformable-attention modules, port of ``mvdetr_tpu/models/deformable.py``.
 
-Windowed mode only in this slice: the reference map is the identity grid
-(the ``n_points=4`` flagship), every sample sits at its query's cell plus a
-learned offset clamped to ``+-radius``, and the sampling runs through
-:func:`mvdetr_tpu_torch.ops.msda_windowed.windowed_attention` (the CUDA
-kernel on the card). The ``gather`` and ``warped`` modes wait for ROADMAP
-item A.7 and raise.
+Two attention modes, both on aligned same-shape grids whose queries are the
+``C`` camera copies of the grid:
+
+- ``windowed``: the reference map is the identity grid (the ``n_points=4``
+  flagship); each sample sits at its query's cell plus a learned offset
+  clamped to ``+-radius``, through
+  :func:`mvdetr_tpu_torch.ops.msda_windowed.windowed_attention` (B1 and B2
+  on the card);
+- ``warped``: a general reference map such as the 8-point shadow map; the
+  value stack is resampled at the map once, then sampled windowed over the
+  ``L*P`` pseudo-levels (:func:`mvdetr_tpu_torch.ops.msda_warped.ms_deform_attn_warped`:
+  B1 and B2, and B3 for the warp's backward, on the card).
+
+The ``gather`` mode (reference-exact arbitrary sampling) raises.
 
 Parameter names follow the reference checkpoint
 (``self_attn.{value_proj,sampling_offsets,attention_weights,output_proj}``,
@@ -23,9 +31,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mvdetr_tpu_torch.models.layers import Dropout, LayerNorm, Linear
+from mvdetr_tpu_torch.ops.msda_warped import ms_deform_attn_warped, shadow_coords
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 
-_MODES_LATER = "the 'gather' and 'warped' attention modes wait for ROADMAP item A.7"
+_MODES = ("windowed", "warped")
+_MODES_LATER = "the 'gather' attention mode waits for ROADMAP item A.7"
 
 
 def radial_offset_bias(n_heads: int, n_levels: int, n_points: int,
@@ -53,22 +63,43 @@ def offset_clip_fraction(offsets: torch.Tensor, radius: float) -> torch.Tensor:
 
 class MSDeformAttn(nn.Module):
     """Multi-scale deformable attention over ``n_levels`` same-shape grids
-    whose queries are the ``C`` aligned copies of the grid (windowed mode)."""
+    whose queries are the ``C`` aligned copies of the grid.
+
+    ``warped`` mode takes the static reference map ``reference_points``
+    (``[Q, L, P, 2]``, or ``[Q, L, 2]`` tiled to the ``P`` points, with ``Q``
+    a multiple of the ``spatial_shape`` grid's cells): the camera copies of
+    the queries share its first ``H*W`` rows (`deformable.py:214-216`). Its
+    pixel coordinates are a non-persistent buffer, so ``state_dict`` keeps
+    the reference checkpoint's names."""
 
     def __init__(self, d_model: int = 128, n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
                  dtype: torch.dtype = torch.float32, mode: str = "windowed", radius: int = 4,
-                 generator=None):
+                 generator=None, reference_points: Optional[np.ndarray] = None, spatial_shape=None):
         super().__init__()
-        if mode != "windowed":
+        if mode not in _MODES:
             raise NotImplementedError(f"MSDeformAttn mode {mode!r}: {_MODES_LATER}")
         self.d_model, self.n_levels, self.n_heads, self.n_points = d_model, n_levels, n_heads, n_points
-        self.dtype, self.radius = dtype, radius
+        self.dtype, self.radius, self.mode = dtype, radius, mode
         m, l, p = n_heads, n_levels, n_points
         self.value_proj = Linear(d_model, d_model, dtype, generator=generator)
+        # the clamp rescales the rings in both modes (`deformable.py:158-162`)
         self.sampling_offsets = Linear(d_model, m * l * p * 2, dtype, init="zeros",
                                        bias_init=radial_offset_bias(m, l, p, max_radius=float(radius)))
         self.attention_weights = Linear(d_model, m * l * p, dtype, init="zeros")
         self.output_proj = Linear(d_model, d_model, dtype, generator=generator)
+        if mode == "warped":
+            if reference_points is None or spatial_shape is None:
+                raise ValueError("warped mode needs reference_points and spatial_shape")
+            h, w = (int(v) for v in spatial_shape)
+            ref = np.asarray(reference_points, dtype=np.float32)
+            ref = ref.reshape((-1, h * w) + ref.shape[1:])[0]  # the first camera copy
+            if ref.ndim == 3:
+                ref = np.tile(ref[:, :, None, :], (1, 1, p, 1))
+            if ref.shape != (h * w, l, p, 2):
+                raise ValueError(f"warped mode: reference map {ref.shape} does not fit {h}x{w} queries, "
+                                 f"{l} levels, {p} points")
+            self.spatial_shape = (h, w)
+            self.register_buffer("shadow_xy", shadow_coords(ref, h, w), persistent=False)
 
     def forward(self, query: torch.Tensor, input_flatten: torch.Tensor, spatial_shape):
         """``query [B, Q, C]``, ``input_flatten [B, S, C]`` (level-major, every
@@ -78,7 +109,9 @@ class MSDeformAttn(nn.Module):
         b, q, _ = query.shape
         h, w = spatial_shape
         if input_flatten.shape[1] != l * h * w or q % (h * w) != 0:
-            raise ValueError("windowed mode needs level-major tokens on aligned same-shape grids")
+            raise ValueError(f"{self.mode} mode needs level-major tokens on aligned same-shape grids")
+        if self.mode == "warped" and (h, w) != self.spatial_shape:
+            raise ValueError(f"warped mode: grid {h}x{w}, the reference map's is {self.spatial_shape}")
         c = q // (h * w)
         value = self.value_proj(input_flatten).reshape(b, l, h, w, m, d)
         offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2).float()
@@ -86,8 +119,12 @@ class MSDeformAttn(nn.Module):
         weights = F.softmax(self.attention_weights(query).reshape(b, q, m, l * p).float(), dim=-1)
         weights = weights.to(value.dtype)
         clip = offset_clip_fraction(offsets, self.radius)
-        out = windowed_attention(value, offsets.reshape(b, c, h, w, m, l, p, 2),
-                                 weights.reshape(b, c, h, w, m, l, p), radius=self.radius)
+        offsets = offsets.reshape(b, c, h, w, m, l, p, 2)
+        weights = weights.reshape(b, c, h, w, m, l, p)
+        if self.mode == "warped":
+            out = ms_deform_attn_warped(value, self.shadow_xy, offsets, weights, radius=self.radius)
+        else:
+            out = windowed_attention(value, offsets, weights, radius=self.radius)
         return self.output_proj(out), clip
 
 
@@ -100,9 +137,11 @@ class DeformableEncoderLayer(nn.Module):
 
     def __init__(self, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32, mode: str = "windowed",
-                 radius: int = 4, generator=None):
+                 radius: int = 4, generator=None, reference_points: Optional[np.ndarray] = None,
+                 spatial_shape=None):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype, mode, radius, generator)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype, mode, radius, generator,
+                                      reference_points, spatial_shape)
         self.dropout1 = Dropout(dropout)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Linear(d_model, d_ffn, dtype, generator=generator)
@@ -121,15 +160,18 @@ class DeformableEncoderLayer(nn.Module):
 
 class DeformableEncoder(nn.Module):
     """``num_layers`` encoder layers; returns the tokens and the per-layer
-    ``offset_clip_fraction`` list (the JAX module sows it instead)."""
+    ``offset_clip_fraction`` list (the JAX module sows it instead).
+    ``reference_points`` and ``spatial_shape``: the static map of ``warped``
+    mode (see :class:`MSDeformAttn`)."""
 
     def __init__(self, num_layers: int = 3, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32,
-                 mode: str = "windowed", radius: int = 4, generator=None):
+                 mode: str = "windowed", radius: int = 4, generator=None,
+                 reference_points: Optional[np.ndarray] = None, spatial_shape=None):
         super().__init__()
         self.layers = nn.ModuleList([
             DeformableEncoderLayer(d_model, d_ffn, dropout, n_levels, n_heads, n_points, dtype, mode, radius,
-                                   generator)
+                                   generator, reference_points, spatial_shape)
             for _ in range(num_layers)
         ])
 

@@ -1,8 +1,9 @@
 """BEV multiview fusion, port of ``mvdetr_tpu/models/world_feat/modules.py``.
 
-Only the shadow transformer (``DeformTransWorldFeat``) in windowed mode is
-ported in this slice; ``build_world_feat`` raises for the other four variants
-(ROADMAP item A.7).
+Only the shadow transformer (``DeformTransWorldFeat``) is ported, in the
+``windowed`` mode (the identity reference map of ``n_points=4``) and the
+``warped`` mode (a general map, such as the 8-point shadow map);
+``build_world_feat`` raises for the other four variants (ROADMAP item A.7).
 """
 
 from __future__ import annotations
@@ -97,7 +98,8 @@ class DeformTransWorldFeat(nn.Module):
 
     The attention mode is resolved at construction, from ``reference_points``
     (``[N*Hs*Ws, N, P, 2]``, `models/mvdetr.py:129-130`), since the grid size
-    is known from ``world_shape`` already.
+    is known from ``world_shape`` already; ``warped`` mode hands the map to
+    the encoder.
     """
 
     def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128,
@@ -119,7 +121,8 @@ class DeformTransWorldFeat(nn.Module):
         with torch.no_grad():
             nn.init.normal_(self.lvl_embedding, 0.0, 1.0, generator=generator)
         self.encoder = DeformableEncoder(3, hidden_dim, dim_feedforward, dropout, num_cam, nhead, n_points, dtype,
-                                         self.mode, attn_radius, generator)
+                                         self.mode, attn_radius, generator,
+                                         reference_points if self.mode == "warped" else None, self.grid)
         self.merge_linear = nn.Sequential(
             Conv2d(num_cam * hidden_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
             nn.ReLU(),

@@ -24,7 +24,7 @@ from mvdetr_tpu_torch.ops import warp as warp_ops
 from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
-from chip_smoke import WARP_STRESS_NAMES, warp_case, warp_stress_cases
+from chip_smoke import WARP_STRESS_NAMES, bwd_case, fwd_case, shadow_warp_inputs, warp_case, warp_stress_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -166,6 +166,60 @@ def test_warp_bwd_stress_cases_on_card(name, cuda_device):
     assert warp_bwd.launches > before
     if name == "all-outside":
         assert not warp_bwd(case["g"], case["sx"], case["sy"], case["h"], case["w"]).any()
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_kernels_over_the_shadow_stack_on_card(integer, cuda_device):
+    """B1 and B2 through ``chip_smoke.fwd_case``/``bwd_case`` over the 56
+    pseudo-levels of one point of a 7-camera, 8-point shadow stack on a 9x21
+    grid (the generic point loop): within their bounds of the plain versions,
+    two launches bitwise equal; offsets at integers, drawn from the radial
+    init of 7 cameras x 8 points, get exactly zero cotangents."""
+    shape = dict(b=2, l=56, c=7, h=9, w=21, m=8, d=16, p=1, radius=4, init=(7, 8))
+    rng = np.random.default_rng(1)
+    before = (msda_windowed_fwd.launches, msda_windowed_bwd.launches)
+    fwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False)
+    bwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False)
+    assert (msda_windowed_fwd.launches, msda_windowed_bwd.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_warp_bwd_at_shadow_coordinates_on_card(dtype, cuda_device):
+    """B3 at the Wildtrack-width rig's 8-point shadow coordinates (g [14,
+    86400, 128] onto 60x180, ``chip_smoke.shadow_warp_inputs``): within rtol
+    2^-6 (bf16; 0 in f32) + 1e-5 of the plain version, bitwise repeat."""
+    c = shadow_warp_inputs(np.random.default_rng(2), dtype=dtype)
+    before = warp_bwd.launches
+    warp_case(f"shadow-{dtype}", c["g"], c["sx"], c["sy"], c["h"], c["w"])
+    assert warp_bwd.launches == before + 2
+
+
+def test_warped_model_steps_launch_each_kernel_on_card(cuda_device):
+    """The n_points-8 model in warped mode: a request launches B1 3 times and
+    neither backward; a bf16 train step B1 and B2 3 times each and B3 4
+    times (the camera warp and each layer's shadow warp), with a finite loss;
+    two steps from the same state and generator repeat bitwise."""
+    rig = make_synthetic_rig(**RIG)
+    batch = synthetic_train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=0)
+    runs = []
+    for _ in range(2):
+        model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, n_points=8, compute_dtype=torch.bfloat16,
+                                device="cuda", seed=0)
+        assert model.world_feat.mode == "warped"
+        counts = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        eval_step(model, batch, world_reduce=2, num_candidates=64)
+        after = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        assert tuple(a - b for a, b in zip(after, counts)) == (3, 0, 0)
+        state = create_train_state(model, lr=5e-4, total_steps=10)
+        state, aux = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        final = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        assert tuple(a - b for a, b in zip(final, after)) == (3, 3, 4)
+        assert np.isfinite(float(aux["loss"]))
+        runs.append((float(aux["loss"]), {n: p.detach().clone() for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    for n, p in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][n]), n
 
 
 def test_warp_bwd_scratch_on_card(rng, cuda_device):
