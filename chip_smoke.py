@@ -45,6 +45,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    with its segment statistics, device time by stage and the library call,
    and in f32, and at the recipe rig's in f32; every case against its plain
    version with a bitwise repeat;
+4c. gather attention (``ops/msda.py``, the ``--attn_mode gather`` and
+   ``--world_feat aio`` encoders): the card against the CPU in f32 (output
+   and the offsets' and weights' gradients at the flagship's shape, B=2,
+   L=C=7, 60x180, M=8, D=16, P=4, and at aio's, one level of 120x360; all
+   three gradients at the recipe's, B=1, L=4, 15x30), and against B1/B2
+   (the windowed = gather identity where no clamp binds: offsets inside
+   +-3, away from integers) at the recipe's and the flagship's shapes; one
+   layer's forward and forward + backward timed in bf16; B3 at the
+   coordinates of gather's value gradient (g [112, 302400, 16] at the
+   radial init in bf16, timed, with its segments, its device time by stage
+   and the library call; at random offsets in f32) and of aio's (g [16,
+   172800, 16]), against its plain version with a bitwise repeat;
 5. B5, the lane broadcast / reduce experiment: each of its six variants
    against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
    the largest output), the variants against each other (``repeat`` tiles,
@@ -73,6 +85,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    each encoder layer's shadow warp) of the ``n_points=8`` model at the same
    width, bf16, batch 2 (warped attention), with profiles of a request and a
    step and the bitwise repeat of two steps (required);
+8c. serving (1 + 3 requests, no kernel launch) and training (1 + 5 steps:
+   B3 4 times each, the camera warp's and each encoder layer's value
+   gradient; B1 and B2 none) with ``--attn_mode gather`` at the same width,
+   then the ``aio`` model (1 + 1 requests, 1 + 3 steps, the same launches);
+   each with profiles of a request and a step and the bitwise repeat of two
+   steps (required);
 9. B3's device time at the flagship by stage and by device activity, from
    torch.profiler after the serve and train profiles: all but one memset of
    its sort must be kernels named ``warp_bwd``, and B3's share of the step
@@ -95,10 +113,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     also after the fill (from the first step on), peak memory and the
     host's thread time per frame set by data stage (epoch 1 renders the
     scene, epoch 2 reads the cache);
+    (d) the reference-checkpoint path (``--load_torch_ckpt``) through
+    ``cli.main`` at the recipe's size, on a ``MultiviewDetector.pth`` built
+    from a seeded port model with its offset biases scaled to reach 9.6
+    cells: gather mode evaluates with no kernel launch; the defaults pick
+    radius 11 and launch B1 3 times per eval batch with no clamp binding; a
+    wrong ``--n_points`` exits with the flag to pass; both print a MODA
+    line, and their BEV heatmaps agree (on the CPU within 1e-4 of scale);
 11. one JSON line with each kernel's launches (by path: serve, train, cli,
-    trainer, experiment, and shadow: the n_points-8 serve, train and recipe
-    runs), error, times and bound, and B1/B2/B3's times at the shadow shapes
-    (``*_shadow``).
+    trainer, experiment, shadow: the n_points-8 serve, train and recipe
+    runs, gather and aio: their serve and train runs, checkpoint: the
+    checkpoint evaluations), error, times and bound, B1/B2/B3's times at
+    the shadow shapes (``*_shadow``), B3's at gather's (``*_gather``, aio's
+    under ``aio_gather``) and the gather layer's times.
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -344,14 +371,16 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
     return rec
 
 
-def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None):
+def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None, scaled=False):
     """B3 vs the plain version on the card (bitwise equal to it when
     ``exact``: every partial sum of the case is exact in f32); timed when the
     samples' BEV grid ``bev_hw`` is given. ``ref_xy``: the coordinates the
     plain version takes instead of ``sx, sy``, on which B3 must give the same
     bits (NaN replaced by a coordinate that matches no cell: the dense
     one-hot product turns 0 * NaN into NaN, the kernel matches no cell).
-    Returns a record."""
+    The bound is rtol (bf16 only) plus 1e-5, times ``max(1, max|ref|)`` when
+    ``scaled`` (gather's cells sum a hundred or more taps of a weighted
+    cotangent, of order 10). Returns a record."""
     import torch
 
     from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
@@ -366,13 +395,14 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None):
     diff = (out.float() - ref.float()).abs()
     err = float(diff.max())
     rtol = WARP_RTOL if g.dtype == torch.bfloat16 else 0.0
-    worst = float((diff - rtol * ref.float().abs()).max())
+    worst = float((diff - rtol * ref.float().abs()).max()) / (max(1.0, float(ref.float().abs().max())) if scaled
+                                                               else 1.0)
     print(f"B3 {name}: g {tuple(g.shape)} {g.dtype} -> {tuple(out.shape)}, max_abs_err={err:.3e} "
           f"(max |ref| {float(ref.float().abs().max()):.3f}), taps inside the map "
           f"{float(((sx >= -1) & (sx <= w) & (sy >= -1) & (sy <= h)).float().mean()):.3f}, bitwise repeat"
           + (", bitwise equal to the plain version" if exact else ""))
     check(bool(torch.isfinite(out).all()), f"B3 {name}: non-finite output")
-    check(worst <= 1e-5, f"B3 {name}: error {err} beyond rtol {rtol} + 1e-5")
+    check(worst <= 1e-5, f"B3 {name}: error {err} beyond rtol {rtol} + 1e-5" + (" of scale" if scaled else ""))
     check(torch.equal(out, again), f"B3 {name}: two launches differ")
     check(not exact or torch.equal(out, ref), f"B3 {name}: not bitwise equal to the plain version")
     rec = {"err": err}
@@ -695,6 +725,213 @@ def shadow_kernel_phase(rng, rig) -> dict:
     return {"b1": b1, "b2": b2, "b3": b3}
 
 
+def gather_inputs(rng, b, l, h, w, m, d, p, reach=None, away=0.0, device="cuda"):
+    """Gather attention's f32 inputs on ``l`` same-shape levels with every
+    token a query (``Q = L*H*W``) at the identity grid map: the value
+    ``[B, L, H, W, M, D]`` rounded to bf16 values (so B1's staging of it is
+    exact), offsets ``[B, L, H, W, M, L, P, 2]`` uniform in ``+-reach`` (None:
+    the unscaled radial init of gather mode, integers mostly; ``away > 0``:
+    a whole part in ``[-reach, reach)`` plus a fraction at least ``away``
+    from 0 and 1, so that no coordinate lies within rounding of a cell
+    edge), weights
+    softmaxed over (L, P), and the grid map ``[Q, 1, L, 1, 2]``. The windowed
+    layouts are the gather layouts' bytes: ``value.view(b, l*h*w, m, d)``,
+    ``offsets.view(b, l*h*w, m, l, p, 2)``."""
+    import torch
+
+    from mvdetr_tpu_torch.models.deformable import grid_reference_points, radial_offset_bias
+
+    value = torch.from_numpy(rng.standard_normal((b, l, h, w, m, d), dtype=np.float32)).bfloat16().float()
+    if reach is None:
+        off = np.broadcast_to(radial_offset_bias(m, l, p).reshape(m, l, p, 2), (b, l, h, w, m, l, p, 2))
+    elif away > 0:
+        size = (b, l, h, w, m, l, p, 2)
+        off = rng.integers(-int(reach), int(reach), size) + rng.uniform(away, 1.0 - away, size)
+    else:
+        off = rng.uniform(-reach, reach, (b, l, h, w, m, l, p, 2))
+    logits = torch.from_numpy(rng.standard_normal((b, l, h, w, m, l * p), dtype=np.float32))
+    wgt = torch.softmax(logits, -1).reshape(b, l, h, w, m, l, p)
+    ref = torch.from_numpy(grid_reference_points(((h, w),) * l))[:, None, :, None, :]
+    off = torch.from_numpy(np.ascontiguousarray(off, dtype=np.float32))
+    return tuple(t.to(device) for t in (value, off, wgt, ref))
+
+
+def gather_run(value, off, wgt, ref, g, shape, value_grad=True):
+    """Gather attention's forward and backward (``g`` the output's
+    cotangent) on the inputs' device through the path's entry points
+    (``sampling_locations``, ``ms_deform_attn_gather``): returns ``(out,
+    g_value, g_offsets, g_weights)``, ``g_value`` None unless
+    ``value_grad``."""
+    import torch
+
+    from mvdetr_tpu_torch.models.deformable import sampling_locations
+    from mvdetr_tpu_torch.ops.msda import ms_deform_attn_gather
+
+    b, l, h, w, m, d, p = (shape[k] for k in ("b", "l", "h", "w", "m", "d", "p"))
+    v = value.reshape(b, l * h * w, m, d).detach().requires_grad_(value_grad)
+    o = off.reshape(b, l * h * w, m, l, p, 2).detach().requires_grad_()
+    wg = wgt.reshape(b, l * h * w, m, l, p).to(value.dtype).detach().requires_grad_()
+    out = ms_deform_attn_gather(v, (h, w), l, sampling_locations(ref, o, h, w), wg)
+    out.backward(g.reshape(out.shape))
+    return out.detach(), (v.grad if value_grad else None), o.grad, wg.grad
+
+
+def _held(label, what, ours, ref, atol):
+    """Check ``ours`` against ``ref`` within ``atol`` of ``max(1, scale)``; returns the error."""
+    import torch
+
+    err, scale = float((ours.float() - ref.float()).abs().max()), float(ref.float().abs().max())
+    check(bool(torch.isfinite(ours).all()), f"{label}: non-finite {what}")
+    check(scale > 0, f"{label}: {what} is all zeros")
+    check(err <= atol * max(1.0, scale), f"{label}: {what} max abs error {err} (scale {scale}) > {atol} of scale")
+    return err
+
+
+def gather_card_vs_cpu(name, shape, rng, value_grad=True) -> float:
+    """Gather attention on the card against the same entry points on the
+    CPU, in f32, at random offsets: the output and the offsets' and
+    weights' gradients, and the value's when ``value_grad`` (its plain CPU
+    adjoint is a dense one-hot product: 11.7 TFLOP at the flagship, so it is
+    held there against B1/B2 instead, by :func:`gather_vs_windowed`).
+    Returns the largest error."""
+    import torch
+
+    cpu = gather_inputs(rng, **shape, reach=6.0, device="cpu")
+    g = torch.from_numpy(rng.standard_normal((shape["b"], shape["l"] * shape["h"] * shape["w"],
+                                              shape["m"] * shape["d"]), dtype=np.float32))
+    t0 = time.perf_counter()
+    ref = gather_run(*cpu, g, shape, value_grad)
+    cpu_s = time.perf_counter() - t0
+    card = gather_run(*(t.cuda() for t in cpu), g.cuda(), shape, value_grad)
+    torch.cuda.synchronize()
+    errs = [_held(f"gather {name} card vs cpu", what, a.cpu(), r, GATHER_ATOL)
+            for what, a, r in zip(("output", "g_value", "g_offsets", "g_weights"), card, ref) if r is not None]
+    print(f"gather {name} card vs cpu, f32: B={shape['b']} L={shape['l']} {shape['h']}x{shape['w']} M={shape['m']} "
+          f"D={shape['d']} P={shape['p']}: max_abs_err output / " + ("g_value / " if value_grad else "")
+          + "g_offsets / g_weights " + " / ".join(f"{e:.3e}" for e in errs) + f" (CPU {cpu_s:.1f} s)")
+    return max(errs)
+
+
+def gather_vs_windowed(rng, name, shape, radius=4) -> float:
+    """The windowed = gather identity (`tests/test_msda_windowed.py:28-44`)
+    on the card in f32: identity map, offsets inside ``+-(R-1)``, each at
+    least 0.01 from an integer, so no clamp binds and B2's hat slope is
+    gather's floor slope at every sample. B1/B2 through
+    ``windowed_attention`` against gather (its value gradient from B3):
+    output and all three gradients within ``GATHER_WINDOWED_ATOL[name]`` of
+    scale. Returns the largest error."""
+    import torch
+
+    from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
+
+    atol = GATHER_WINDOWED_ATOL[name]
+    value, off, wgt, ref = gather_inputs(rng, **shape, reach=radius - 1.0, away=0.01)
+    check(float(off.abs().max()) < radius - 1, "gather vs windowed: an offset outside +-(R-1)")
+    b, l, h, w, m, d = (shape[k] for k in ("b", "l", "h", "w", "m", "d"))
+    g = torch.from_numpy(rng.standard_normal((b, l * h * w, m * d), dtype=np.float32)).cuda()
+    vw, ow, ww = (t.detach().requires_grad_() for t in (value, off, wgt))
+    out_w = windowed_attention(vw, ow, ww, radius)
+    out_w.backward(g)
+    ours = gather_run(value, off, wgt, ref, g, shape)
+    torch.cuda.synchronize()
+    errs = [_held(f"gather vs B1/B2 {name}", what, a.reshape(r.shape), r, atol)
+            for what, a, r in zip(("output", "g_value", "g_offsets", "g_weights"), ours,
+                                  (out_w.detach(), vw.grad, ow.grad, ww.grad))]
+    print(f"gather vs B1/B2 (windowed, R={radius}) {name}: B={b} L={l} {h}x{w} M={m} D={d}, f32, offsets inside "
+          f"+-{radius - 1}: max_abs_err output / g_value / g_offsets / g_weights "
+          + " / ".join(f"{e:.3e}" for e in errs) + f" (bound {atol} of scale)")
+    return max(errs)
+
+
+def gather_warp_inputs(rng, shape, dtype, reach=None, device="cuda") -> dict:
+    """B3's inputs on gather mode's backward: the coordinates of
+    :func:`gather_inputs`' locations (the radial init when ``reach`` is None)
+    laid out as the backward launches them, ``[B*M*L, Q*P]``, and g
+    ``[B*M*L, Q*P, D]`` from ``rng`` in ``dtype``. ``bev_hw`` lays the Q*P
+    samples out as a grid for the library call."""
+    import torch
+
+    from mvdetr_tpu_torch.models.deformable import sampling_locations
+    from mvdetr_tpu_torch.ops.msda import gather_coords
+
+    b, l, h, w, m, d, p = (shape[k] for k in ("b", "l", "h", "w", "m", "d", "p"))
+    _, off, _, ref = gather_inputs(rng, **shape, reach=reach, device=device)
+    loc = sampling_locations(ref, off.reshape(b, l * h * w, m, l, p, 2), h, w)
+    sx, sy = gather_coords(loc, h, w)
+    g = torch.from_numpy(rng.standard_normal((sx.shape[0], sx.shape[1], d), dtype=np.float32)).to(device, dtype)
+    return {"g": g, "sx": sx.contiguous(), "sy": sy.contiguous(), "h": h, "w": w, "bev_hw": (l * h * p, w)}
+
+
+def gather_kernel_phase(rng) -> dict:
+    """(g) gather attention on the card: against the CPU (the flagship's
+    shape without the value's gradient, the recipe's with it), against
+    B1/B2 at the flagship's shape, timed forward and backward in bf16; B3
+    at the coordinates of the flagship's and aio's gather backward in bf16
+    (timed, device time by stage, the library call) and f32, against its
+    plain version with a bitwise repeat. Returns B3's record, errors under
+    ``"errs"``, and the attention's times."""
+    import torch
+
+    from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    errs = [gather_card_vs_cpu("flagship", GATHER_ATTENTION, rng, value_grad=False),
+            gather_card_vs_cpu("recipe", RECIPE_GATHER_ATTENTION, rng),
+            gather_card_vs_cpu("aio", AIO_ATTENTION, rng, value_grad=False),
+            gather_vs_windowed(rng, "recipe", RECIPE_GATHER_ATTENTION),
+            gather_vs_windowed(rng, "flagship", GATHER_ATTENTION)]
+    torch.cuda.empty_cache()
+
+    # one layer's attention at the flagship in bf16, as the model runs it: the plain gather forward, B3 backward
+    value, off, wgt, ref = gather_inputs(rng, **GATHER_ATTENTION, reach=6.0)
+    value = value.bfloat16()
+    g = torch.from_numpy(rng.standard_normal((2, 7 * 60 * 180, 128), dtype=np.float32)).cuda().bfloat16()
+    times = {"fwd_ms": cuda_ms(lambda: gather_forward(value, off, wgt, ref, GATHER_ATTENTION), 5),
+             "fwd_bwd_ms": cuda_ms(lambda: gather_run(value, off, wgt, ref, g, GATHER_ATTENTION), 5)}
+    print(f"gather attention, one layer at the flagship in bf16: forward {times['fwd_ms']:.3f} ms, forward and "
+          f"backward {times['fwd_bwd_ms']:.3f} ms (B3 once)")
+    del value, off, wgt, ref, g
+    torch.cuda.empty_cache()
+
+    c = gather_warp_inputs(rng, GATHER_ATTENTION, torch.bfloat16)
+    seg = warp_segment_stats(c["sx"], c["sy"], c["h"], c["w"])
+    print(f"B3 gather segments (radial init): {seg['nonempty']} of {seg['cells']} cells get a tap, "
+          f"{seg['entries_inside']} of {seg['entries']} entries inside; entries per non-empty cell mean "
+          f"{seg['mean']:.2f}, p90 {seg['p90']:.0f}, p99 {seg['p99']:.0f}, largest {seg['max']}")
+    b3 = warp_case("gather-bf16", c["g"], c["sx"], c["sy"], c["h"], c["w"], bev_hw=c["bev_hw"], scaled=True)
+    b3["segments"] = seg
+    b3["device_ms"] = warp_stage_ms(lambda: warp_bwd(c["g"], c["sx"], c["sy"], c["h"], c["w"]))
+    print("B3 gather device time by stage: " + ", ".join(f"{k} {v:.4f} ms" for k, v in b3["device_ms"].items()))
+    del c
+    torch.cuda.empty_cache()
+    c = gather_warp_inputs(rng, GATHER_ATTENTION, torch.float32, reach=6.0)
+    b3["errs"] = [b3["err"], warp_case("gather-f32", c["g"], c["sx"], c["sy"], c["h"], c["w"], scaled=True)["err"]]
+    del c
+    torch.cuda.empty_cache()
+    c = gather_warp_inputs(rng, AIO_ATTENTION, torch.bfloat16)
+    aio = warp_case("aio-bf16", c["g"], c["sx"], c["sy"], c["h"], c["w"], bev_hw=c["bev_hw"], scaled=True)
+    b3["errs"].append(aio["err"])
+    b3["aio"] = {k: aio[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    c32 = gather_warp_inputs(rng, AIO_ATTENTION, torch.float32, reach=6.0)
+    b3["errs"].append(warp_case("aio-f32", c32["g"], c32["sx"], c32["sy"], c32["h"], c32["w"], scaled=True)["err"])
+    del c, c32
+    torch.cuda.empty_cache()
+    return {"b3": b3, "errs": errs, "times": times}
+
+
+def gather_forward(value, off, wgt, ref, shape):
+    """Gather attention's forward alone (no autograd graph)."""
+    import torch
+
+    from mvdetr_tpu_torch.models.deformable import sampling_locations
+    from mvdetr_tpu_torch.ops.msda import ms_deform_attn_gather
+
+    b, l, h, w, m, d, p = (shape[k] for k in ("b", "l", "h", "w", "m", "d", "p"))
+    with torch.no_grad():
+        loc = sampling_locations(ref, off.reshape(b, l * h * w, m, l, p, 2), h, w)
+        return ms_deform_attn_gather(value.reshape(b, l * h * w, m, d), (h, w), l, loc,
+                                     wgt.reshape(b, l * h * w, m, l, p).to(value.dtype))
+
+
 def lane_phase() -> dict:
     """B5: each variant against its plain version and the variants against
     each other at both sizes, then the experiment's entry point as the
@@ -852,21 +1089,21 @@ def profile_table(label, fn, wall_ms, names):
     return ours
 
 
-def serve_full_width(rig, n_points=4):
-    """Serve 1 + 3 requests of the ``n_points`` model; every request must
-    launch B1 3 times and B2 and B3 no time. Returns the launches by kernel
-    name."""
+def serve_full_width(rig, config="flagship", n_timed=3):
+    """Serve 1 + ``n_timed`` requests of a ``FULL_WIDTH`` configuration;
+    every request must launch B1/B2/B3 as the table says. Returns the
+    launches by kernel name."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
     from mvdetr_tpu_torch.train import eval_step
 
-    batch_size, n_timed = 2, 3
-    label = "serve" if n_points == 4 else f"serve n_points={n_points}"
-    mode = "windowed" if n_points == 4 else "warped"
+    batch_size = 2
+    kw, mode, per_request, _ = FULL_WIDTH[config]
+    label = "serve" + FULL_WIDTH_LABELS[config]
     wrappers = main_path_launches()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16,
-                            attn_radius=4, n_points=n_points, device="cuda", seed=0)
+                            attn_radius=4, device="cuda", seed=0, **kw)
     perturb_attention(model, seed=1)
     check(model.world_feat.mode == mode, f"attention mode {model.world_feat.mode}, expected {mode}")
     rng = np.random.default_rng(0)
@@ -887,36 +1124,41 @@ def serve_full_width(rig, n_points=4):
         check(bool(torch.isfinite(xys).all()), f"{label}: non-finite detections")
         check(keep.dtype == torch.bool and int(keep.sum()) > 0, f"{label}: no detection kept")
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    expected = {"msda_windowed_fwd": 3 * (1 + n_timed), "msda_windowed_bwd": 0, "warp_bwd": 0}
+    expected = {name: k * (1 + n_timed) for name, k in zip(wrappers, per_request)}
     check(launches == expected, f"{label}: launches {launches} in {1 + n_timed} requests, expected {expected}")
     timed = latencies[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label}: warm-up {latencies[0]:.1f} ms, timed requests (ms) {[round(t, 3) for t in timed]}, "
-          f"median {med:.3f} ms" + (f" (with F.interpolate: {INTERP_SERVE_MS} ms)" if n_points == 4 else "")
+          f"median {med:.3f} ms" + (f" (with F.interpolate: {INTERP_SERVE_MS} ms)" if config == "flagship" else "")
           + f", {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
-    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}, offset_clip_fraction "
-          f"{float(aux['offset_clip_fraction']):.4f}, launches {launches} in {1 + n_timed} requests")
+    clip = f", offset_clip_fraction {float(aux['offset_clip_fraction']):.4f}" if "offset_clip_fraction" in aux else ""
+    check(("offset_clip_fraction" in aux) == (mode != "gather"), f"{label}: offset_clip_fraction in {sorted(aux)}")
+    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches} in "
+          f"{1 + n_timed} requests")
     profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0),
                   med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), **GATHER_LABEL})
     return launches
 
 
-def train_full_width(rig, batch, n_points=4):
-    """1 + 5 train steps of the ``n_points`` model, each launching B1 and B2
-    3 times and B3 once for the camera warp and, at n_points 8, once more
-    per encoder layer for the shadow warp. Returns the launch counts by
-    kernel name and the step profile's device time by kernel label."""
+def train_full_width(rig, batch, config="flagship", n_timed=5):
+    """1 + ``n_timed`` train steps of a ``FULL_WIDTH`` configuration, each
+    launching B1/B2/B3 as the table says (B3: the camera warp's, and in
+    warped and gather modes one more per encoder layer), then the bitwise
+    repeat of two steps. Returns the launch counts by kernel name and the
+    step profile's device time by kernel label."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
     from mvdetr_tpu_torch.train import batch_to_device, create_train_state, train_step
 
-    batch_size, n_timed = 2, 5
-    label = "train" if n_points == 4 else f"train n_points={n_points}"
+    batch_size = 2
+    kw, mode, _, per_step = FULL_WIDTH[config]
+    label = "train" + FULL_WIDTH_LABELS[config]
     wrappers = main_path_launches()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
-                            n_points=n_points, device="cuda", seed=0)
+                            device="cuda", seed=0, **kw)
+    check(model.world_feat.mode == mode, f"attention mode {model.world_feat.mode}, expected {mode}")
     state = create_train_state(model, lr=LR, total_steps=TOTAL_STEPS)
     batch = batch_to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -935,15 +1177,15 @@ def train_full_width(rig, batch, n_points=4):
         check(math.isfinite(losses[-1]), f"{label}: loss {losses[-1]} at step {state.step}")
     launches = {name: fn.launches for name, fn in wrappers.items()}
     steps = 1 + n_timed
-    expected = {"msda_windowed_fwd": 3 * steps, "msda_windowed_bwd": 3 * steps,
-                "warp_bwd": warps_per_step(n_points) * steps}
+    expected = {name: k * steps for name, k in zip(wrappers, per_step)}
     check(launches == expected, f"{label}: launches {launches} in {steps} steps, expected {expected}")
     timed = times[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label}: warm-up {times[0]:.1f} ms, timed steps (ms) {[round(t, 3) for t in timed]}, median {med:.3f} ms"
-          + (f" (with F.interpolate: {INTERP_TRAIN_MS} ms)" if n_points == 4 else "")
+          + (f" (with F.interpolate: {INTERP_TRAIN_MS} ms)" if config == "flagship" else "")
           + f", {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
+    check(("offset_clip_fraction" in aux) == (mode != "gather"), f"{label}: offset_clip_fraction in {sorted(aux)}")
     print(f"{label}: losses {[round(v, 5) for v in losses]}, last step "
           + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches} in {steps} steps")
     ours = profile_table(label, lambda: train_step(state, batch, gen), med,
@@ -1005,6 +1247,30 @@ SHADOW_ATTENTION = dict(b=2, l=56, c=7, h=60, w=180, m=8, d=16, p=1, radius=4, i
 RECIPE_SHADOW_ATTENTION = dict(b=1, l=32, c=4, h=15, w=30, m=8, d=16, p=1, radius=4, init=(4, 8))
 # the warp's forward gathers (the camera warp's and, in warped mode, the shadow warp's): index_select's kernel
 GATHER_LABEL = {"index_select (warp gathers)": ("vectorized_gather_kernel", "indexSelect")}
+# the configurations served and trained at full width: model keywords, the attention mode they resolve, and B1/B2/B3
+# launches per request and per train step (B3: the camera warp's, and one per encoder layer in warped and gather modes)
+FULL_WIDTH = {
+    "flagship": (dict(n_points=4), "windowed", (3, 0, 0), (3, 3, 1)),
+    "shadow": (dict(n_points=8), "warped", (3, 0, 0), (3, 3, 4)),
+    "gather": (dict(attn_mode="gather"), "gather", (0, 0, 0), (0, 0, 4)),
+    "aio": (dict(world_feat_arch="aio"), "gather", (0, 0, 0), (0, 0, 4)),
+}
+FULL_WIDTH_LABELS = {"flagship": "", "shadow": " n_points=8", "gather": " gather", "aio": " aio"}
+# gather attention at full width: the shadow transformer's encoder (7 camera levels of 60x180, every token a query)
+# and the aio encoder's (one level, the 120x360 BEV); B3 takes the value's gradient as B*M*L maps of Q*P samples
+GATHER_ATTENTION = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4)
+AIO_ATTENTION = dict(b=2, l=1, h=120, w=360, m=8, d=16, p=4)
+RECIPE_GATHER_ATTENTION = dict(b=1, l=4, h=15, w=30, m=8, d=16, p=4)
+GATHER_ATOL = 1e-5  # f32 card vs CPU, of max(1, scale): sums of up to 4*L*P terms (B3: of a cell's taps) in another order
+# gather vs B1/B2 in f32, of max(1, scale): tests/test_msda_windowed.py's bound on its 8x12 grid, and at the
+# flagship's 60x180 grid a wider one: gather's x = (ref + off/W)*W - 0.5 carries up to ~W * 2^-23 ~ 2e-5 cells of f32
+# rounding that windowed's x_q + off does not, and a sample moves by its slope (values of order 1) times that
+GATHER_WINDOWED_ATOL = {"recipe": 2e-5, "flagship": 1e-4}
+# (j) the reference-checkpoint path at the recipe's size (the CLI's synthetic defaults: 4 cameras, 180x320 frames,
+# a 120x240 grid): the radial rings (4 cells at radius 4) scaled to 9.6 cells, so suggest_attn_radius picks 11 > 8,
+# where the TPU path took its large-radius kernel B4
+CKPT_RECIPE = ["-d", "synthetic", "--synthetic_frames", "12", "--cls_thres", "0.4", "-j", "4"]
+CKPT_BIAS_SCALE, CKPT_RADIUS = 2.4, 11
 # tests/test_convergence.py: its rigs, recipe and bounds
 CONVERGENCE_RIGS = {
     "xy": dict(num_cam=4, img_shape=(180, 320), worldgrid_shape=(120, 240)),
@@ -1144,12 +1410,6 @@ class EpochProbe:
         self._saved.clear()
 
 
-def warps_per_step(n_points: int) -> int:
-    """B3 launches per train step: the camera warp's, and at n_points 8 the
-    shadow warp's of each of the 3 encoder layers."""
-    return 1 if n_points == 4 else 4
-
-
 def main_path_launches() -> dict:
     from mvdetr_tpu_torch.ops.msda_windowed import msda_windowed_bwd, msda_windowed_fwd
     from mvdetr_tpu_torch.ops.warp import warp_bwd
@@ -1157,11 +1417,12 @@ def main_path_launches() -> dict:
     return {"msda_windowed_fwd": msda_windowed_fwd, "msda_windowed_bwd": msda_windowed_bwd, "warp_bwd": warp_bwd}
 
 
-def counted_run(label, probe, fn, n_points=4):
+def counted_run(label, probe, fn, per_step=(3, 3, 1), per_eval=(3, 0, 0), trains=True):
     """Run ``fn`` with every kernel's count set to 0 just before and read
-    just after: B1/B2/B3 must launch 3/3/``warps_per_step(n_points)`` times
-    per train step and B1 3 times per eval batch, each B5 variant no time.
-    Returns ``(fn's result, launches by kernel)``, B5's under
+    just after: B1/B2/B3 must launch ``per_step`` times per train step and
+    ``per_eval`` times per eval batch, each B5 variant no time; ``fn`` must
+    take train steps when ``trains`` (else none) and eval batches. Returns
+    ``(fn's result, launches by kernel)``, B5's under
     ``lane_broadcast:<variant>``."""
     from mvdetr_tpu_torch.ops import lane_broadcast as lb
 
@@ -1176,18 +1437,19 @@ def counted_run(label, probe, fn, n_points=4):
     b5 = lb.lane_broadcast.launches + lb.lane_reduce.launches
     launches.update({f"{lb.KERNEL_NAME}:{v}": b5[v] for v in lb.VARIANTS})
     steps, evals = probe.train_steps - steps0, probe.eval_steps - evals0
-    expected = {"msda_windowed_fwd": 3 * (steps + evals), "msda_windowed_bwd": 3 * steps,
-                "warp_bwd": warps_per_step(n_points) * steps,
-                **{f"{lb.KERNEL_NAME}:{v}": 0 for v in lb.VARIANTS}}
+    expected = {name: a * steps + b * evals for name, a, b in zip(wrappers, per_step, per_eval)}
+    expected.update({f"{lb.KERNEL_NAME}:{v}": 0 for v in lb.VARIANTS})
     print(f"{label}: {steps} train steps, {evals} eval batches; launches {launches} (expected {expected})")
-    check(steps > 0 and evals > 0 and launches == expected, f"{label}: launches {launches}, expected {expected}")
+    check((steps > 0) == trains and evals > 0 and launches == expected,
+          f"{label}: {steps} train steps, {evals} eval batches, launches {launches}, expected {expected}")
     return out, launches
 
 
-def run_cli(argv):
+def run_cli(argv, trains=True):
     """``cli.main(argv)`` on the card in a temporary logdir (removed after);
     the CLI's stdout tee and its cuDNN settings are put back. Returns
-    the trainer and ``log.txt``."""
+    the trainer and ``log.txt``; a run that ``trains`` must leave a
+    checkpoint."""
     import torch
 
     from mvdetr_tpu_torch import cli
@@ -1199,7 +1461,7 @@ def run_cli(argv):
         with open(os.path.join(logdir, "log.txt")) as fh:
             log = fh.read()
         check(os.path.isfile(os.path.join(logdir, "test.txt")), "cli: no test.txt")
-        check(bool(os.listdir(os.path.join(logdir, "checkpoints"))), "cli: no checkpoint")
+        check(not trains or bool(os.listdir(os.path.join(logdir, "checkpoints"))), "cli: no checkpoint")
     finally:
         if sys.stdout is not saved[0]:
             sys.stdout.close()
@@ -1216,7 +1478,8 @@ def recipe_phase(probe, argv=RECIPE, n_points=4) -> dict:
     label = "cli recipe" if n_points == 4 else f"cli recipe n_points={n_points}"
     probe.tests = []
     t0 = time.perf_counter()
-    (trainer, log), launches = counted_run(label, probe, lambda: run_cli(argv), n_points=n_points)
+    (trainer, log), launches = counted_run(label, probe, lambda: run_cli(argv),
+                                           per_step=FULL_WIDTH["flagship" if n_points == 4 else "shadow"][3])
     wall = time.perf_counter() - t0
     mode = trainer.state.model.world_feat.mode
     modas = [round(t[1], 1) for t in probe.tests]
@@ -1293,6 +1556,83 @@ def wildtrack_cli_phase(probe) -> dict:
     return {"launches": launches, "epochs": epochs}
 
 
+def checkpoint_phase(probe) -> dict:
+    """(j) ``--load_torch_ckpt`` through ``cli.main`` at the recipe's size.
+    Nothing can be downloaded, so the ``MultiviewDetector.pth`` is a seeded
+    port model with its offset biases scaled by CKPT_BIAS_SCALE and its
+    offset kernels left at zero, saved as ``{"state_dict": {"module." + k:
+    v}}``. Evaluated in gather mode (no kernel launch), then at the
+    defaults (the radius picked from the biases, B1 three times per eval
+    batch, no clamp binding); a wrong ``--n_points`` must exit with the
+    flag to pass. Both evaluations print a MODA line, and the two loaded
+    models' BEV heatmaps agree: on the CPU in f32 within 1e-4 of scale (the
+    same function: every offset inside the radius), on the card within
+    SMALL_MODEL_RTOL (windowed mode stages the value in bf16 there).
+    Returns the launches by run and the picked radius."""
+    import torch
+
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.models import MVDeTr
+
+    rig = make_synthetic_rig(num_cam=4, img_shape=(180, 320), worldgrid_shape=(120, 240))  # the CLI's defaults
+    model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, device="cpu", seed=5)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("sampling_offsets.bias"):
+                p.mul_(CKPT_BIAS_SCALE)
+    tmp = tempfile.mkdtemp(prefix="mvdetr_ckpt_")
+    try:
+        path = os.path.join(tmp, "MultiviewDetector.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in model.state_dict().items()}}, path)
+        argv = CKPT_RECIPE + ["--load_torch_ckpt", path]
+        runs, launches = {}, {}
+        for mode, per_eval in (("gather", (0, 0, 0)), ("auto", (3, 0, 0))):
+            probe.tests = []
+            t0 = time.perf_counter()
+            runs[mode], launches[mode] = counted_run(
+                f"checkpoint {mode}", probe, lambda: run_cli(argv + ["--attn_mode", mode], trains=False),
+                per_eval=per_eval, trains=False)
+            trainer, log = runs[mode]
+            moda = [line for line in log.splitlines() if line.startswith("Test: loss")]
+            print(f"checkpoint {mode}: {trainer.state.model.world_feat.mode} attention, "
+                  f"{time.perf_counter() - t0:.1f} s; {moda[-1] if moda else 'no test line'}")
+            check(len(moda) == 1 and "moda" in moda[0] and trainer.state.step == 0, f"checkpoint {mode}: {moda}")
+            check(trainer.state.model.warp_convention == "kornia", f"checkpoint {mode}: not the kornia warp")
+        gather_model, auto_model = runs["gather"][0].state.model, runs["auto"][0].state.model
+        radius_line = [line for line in runs["auto"][1].splitlines() if line.startswith("auto attn_radius")]
+        print(f"checkpoint auto: {radius_line}; "
+              f"{[ln for ln in runs['auto'][1].splitlines() if ln.startswith('Eval offset_clip_fraction')]}")
+        radius = auto_model.world_feat.encoder.layers[0].self_attn.radius
+        check(gather_model.world_feat.mode == "gather" and auto_model.world_feat.mode == "windowed",
+              "checkpoint: attention modes")
+        check(radius == CKPT_RADIUS and len(radius_line) == 1 and radius_line[0].startswith(
+            f"auto attn_radius {CKPT_RADIUS} "), f"checkpoint auto: radius {radius}, {radius_line}")
+        check("Eval offset_clip_fraction 0.0000" in runs["auto"][1], "checkpoint auto: a clamp binds")
+        try:
+            run_cli(argv + ["--n_points", "8"], trains=False)
+            check(False, "checkpoint: a wrong --n_points did not exit")
+        except SystemExit as e:
+            print(f"checkpoint with --n_points 8: SystemExit({str(e)!r})")
+            check(str(e).endswith("rerun with: --n_points 4"), f"checkpoint: exit message {e}")
+
+        batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=1, num_person=8)
+        imgs, aff = torch.from_numpy(batch["imgs"]), torch.from_numpy(batch["affine_mats"])
+        heat = {}
+        for where in ("cuda", "cpu"):
+            for mode, m in (("gather", gather_model), ("auto", auto_model)):
+                with torch.inference_mode():
+                    heat[where, mode] = m.to(where)(imgs.to(where), aff.to(where))[0][0][0].float().cpu()
+        for where, tol in (("cpu", 1e-4), ("cuda", SMALL_MODEL_RTOL)):
+            err, scale = float((heat[where, "gather"] - heat[where, "auto"]).abs().max()), float(
+                heat[where, "gather"].abs().max())
+            print(f"checkpoint BEV heatmaps, gather vs auto (windowed, R={radius}) on the {where}: max_abs_err "
+                  f"{err:.3e} (max |ref| {scale:.3f}, bound {tol} of scale)")
+            check(err <= tol * max(1.0, scale), f"checkpoint: gather and auto heatmaps differ by {err} on {where}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "radius": radius}
+
+
 def main() -> int:
     import torch
 
@@ -1366,6 +1706,7 @@ def main() -> int:
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
     b3 = warp_phase(rng, rig, batch)
     shadow = shadow_kernel_phase(rng, rig)
+    gather = gather_kernel_phase(rng)
     b5 = lane_phase()
 
     small_model_card_vs_cpu()
@@ -1375,9 +1716,18 @@ def main() -> int:
     warp_profile(b3, rig, batch, step_profile[warp.KERNEL_NAME])
     torch.cuda.empty_cache()
     # the 8-point shadow configuration at the same width: warped attention, B3 also on each layer's shadow warp
-    shadow_serve_launches = serve_full_width(rig, n_points=8)
+    shadow_serve_launches = serve_full_width(rig, "shadow")
     torch.cuda.empty_cache()
-    shadow_train_launches, _ = train_full_width(rig, batch, n_points=8)
+    shadow_train_launches, _ = train_full_width(rig, batch, "shadow")
+    torch.cuda.empty_cache()
+    # (h) gather attention and (i) aio at the same width: B3 on the camera warp and each encoder layer's value
+    gather_launches = {"serve": serve_full_width(rig, "gather")}
+    torch.cuda.empty_cache()
+    gather_launches["train"], _ = train_full_width(rig, batch, "gather")
+    torch.cuda.empty_cache()
+    aio_launches = {"serve": serve_full_width(rig, "aio", n_timed=1)}
+    torch.cuda.empty_cache()
+    aio_launches["train"], _ = train_full_width(rig, batch, "aio", n_timed=3)
     torch.cuda.empty_cache()
 
     probe = EpochProbe().install()
@@ -1386,6 +1736,7 @@ def main() -> int:
         shadow_recipe_launches = recipe_phase(probe, RECIPE_SHADOW, n_points=8)
         trainer_launches = convergence_phase(probe)
         wildtrack = wildtrack_cli_phase(probe)
+        ckpt = checkpoint_phase(probe)
     finally:
         probe.uninstall()
     cli_launches = {k: recipe_launches[k] + wildtrack["launches"][k] for k in recipe_launches}
@@ -1409,6 +1760,11 @@ def main() -> int:
     ]
     for name, _, _, _, by_path in records:
         by_path["shadow"] = sum(shadow_by_path[name].values())
+        by_path["gather"] = gather_launches["serve"][name] + gather_launches["train"][name]
+        by_path["aio"] = aio_launches["serve"][name] + aio_launches["train"][name]
+        by_path["checkpoint"] = sum(run[name] for run in ckpt["launches"].values())
+    check(records[2][4]["gather"] > 0 and records[2][4]["aio"] > 0, "gather and aio: B3 launched no time")
+    check(records[0][4]["checkpoint"] > 0, "checkpoint: B1 launched no time")
     rows = [{
         "name": name,
         "route": "cuda",
@@ -1439,6 +1795,15 @@ def main() -> int:
     rows[1].update({f"{k}_shadow": shadow["b2"][k] for k in ("value_ms", "query_ms", "value_bound_ms",
                                                              "query_bound_ms", "ms_integer")})
     rows[2].update({f"{k}_shadow": shadow["b3"][k] for k in ("library_ms", "device_ms", "segments")})
+    # gather mode: B3 at the coordinates of the flagship's gather backward (and aio's), the attention layer's times
+    # (plain forward, B3 backward) and its errors against the CPU and against B1/B2; B1 at the checkpoint's radius
+    rows[2].update({f"{k}_gather": gather["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                              "device_ms", "segments")})
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], *gather["b3"]["errs"])
+    rows[2]["aio_gather"] = gather["b3"]["aio"]
+    rows[2]["gather_layer_ms"] = gather["times"]
+    rows[2]["gather_attention_max_abs_err"] = max(gather["errs"])
+    rows[0]["checkpoint_radius"] = ckpt["radius"]
     # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
     tile, big = sorted(b5["matmul"]["by_T"])
     rows += [{

@@ -13,18 +13,27 @@ The parser is the JAX package's, flag for flag and default for default,
 plus ``--device`` (default ``cuda``; the run raises without a card unless
 ``--device cpu``). A flag whose feature the port does not have yet raises
 before any work: ``--view_shards``/``--bev_shards`` > 1 and the multi-host
-flags (ROADMAP item A.9), ``--load_torch_ckpt`` (A.6), ``--visualize``
-(A.5), ``--arch vgg11``, ``--world_feat`` other than ``deform_trans``,
-``--attn_mode gather`` and ``--remat_backbone`` (A.7). ``--n_points 8``
-(the shadow reference maps, ``warped`` attention) and ``--attn_mode
-windowed|warped`` run. ``--reID`` and ``--id_ratio`` are accepted and, as in the JAX
-package, only name the logdir.
+flags (ROADMAP item A.9), ``--visualize`` (A.5), ``--arch vgg11``,
+``--world_feat conv|trans|deform_conv`` and ``--remat_backbone`` (A.7).
+``--n_points 8`` (the shadow reference maps, ``warped`` attention),
+``--attn_mode windowed|warped|gather`` and ``--world_feat aio`` run.
+``--reID`` and ``--id_ratio`` are accepted and, as in the JAX package, only
+name the logdir.
+
+``--load_torch_ckpt MultiviewDetector.pth`` evaluates a reference checkpoint
+once and trains nothing (`mvdetr_tpu/cli.py:228-241,299-326`): its
+configuration must match the flags (else the run exits with the flags to
+pass), ``--warp_convention`` defaults to ``kornia`` (the reference's
+resampling), and outside ``--attn_mode gather`` an unset ``--attn_radius``
+is picked from the checkpoint's offset biases.
 
 Usage::
 
     python -m mvdetr_tpu_torch.cli -d synthetic --epochs 10 --synthetic_frames 12 --lr 1e-3 --cls_thres 0.4
     python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --epochs 1 --synthetic_frames 4
     python -m mvdetr_tpu_torch.cli -d synthetic --n_points 8 --epochs 10 --synthetic_frames 12 --lr 1e-3 --cls_thres 0.4
+    python -m mvdetr_tpu_torch.cli -d synthetic --attn_mode gather --epochs 10 --synthetic_frames 12 --lr 1e-3
+    python -m mvdetr_tpu_torch.cli -d synthetic --synthetic_frames 12 --load_torch_ckpt MultiviewDetector.pth
 """
 
 from __future__ import annotations
@@ -94,12 +103,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--process_id", type=int, default=None, help="multi-host (not ported)")
     parser.add_argument("--bf16", type=str2bool, default=False, help="bfloat16 compute (params stay f32)")
     parser.add_argument("--attn_mode", type=str, default="auto", choices=["auto", "gather", "windowed", "warped"],
-                        help="deformable-attention sampling; auto = windowed for n_points 4, warped for 8 "
-                             "(gather: not ported)")
+                        help="deformable-attention sampling; auto = windowed for n_points 4, warped for 8; "
+                             "gather = the reference semantics, unclamped")
     parser.add_argument("--n_points", type=int, default=4, choices=[4, 8],
                         help="deformable points per (head, level); 8 = shadow reference maps")
     parser.add_argument("--attn_radius", type=int, default=None,
-                        help="windowed-attention clamp radius in BEV cells (default 4)")
+                        help="windowed-attention clamp radius in BEV cells (default 4, or picked from "
+                             "--load_torch_ckpt)")
     parser.add_argument("--nms_top_k", type=int, default=512,
                         help="eval candidate cap before NMS (the trainer warns when it saturates)")
     parser.add_argument("--remat_backbone", type=str2bool, default=False,
@@ -107,9 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--backbone_ckpt", type=str, default=None,
                         help="torchvision resnet18 .pth/.npz for ImageNet init")
     parser.add_argument("--load_torch_ckpt", type=str, default=None,
-                        help="reference MultiviewDetector.pth, eval only (not ported)")
+                        help="reference MultiviewDetector.pth, eval only")
     parser.add_argument("--warp_convention", type=str, default=None, choices=["center", "kornia"],
-                        help="BEV warp sampling convention; default 'center'")
+                        help="BEV warp sampling convention; default 'center' ('kornia' with --load_torch_ckpt)")
     parser.add_argument("--data_root", type=str, default=None)
     parser.add_argument("--logdir", type=str, default=None,
                         help="explicit run directory (overrides the config-encoded name)")
@@ -132,11 +142,9 @@ def check_ported(args) -> None:
         "--num_processes, --coordinator_address, --process_id (ROADMAP item A.9, multi-GPU)":
             bool(args.num_processes and args.num_processes > 1) or args.coordinator_address is not None
             or args.process_id is not None,
-        "--load_torch_ckpt (ROADMAP item A.6, the reference-checkpoint path)": args.load_torch_ckpt is not None,
         "--visualize (ROADMAP item A.5)": args.visualize,
         "--arch vgg11 (ROADMAP item A.7)": args.arch != "resnet18",
-        f"--world_feat {args.world_feat} (ROADMAP item A.7)": args.world_feat != "deform_trans",
-        "--attn_mode gather (ROADMAP item A.7)": args.attn_mode == "gather",
+        f"--world_feat {args.world_feat} (ROADMAP item A.7)": args.world_feat not in ("deform_trans", "aio"),
         "--remat_backbone (ROADMAP item A.7)": args.remat_backbone,
     }
     missing = [flag for flag, used in unported.items() if used]
@@ -211,13 +219,26 @@ def main(args=None):
     print("Settings:")
     print(vars(args))
 
+    # windowed clamp radius: the flag, else for a reference checkpoint (trained with unbounded offsets) the
+    # smallest radius that covers its offsets' biases, else 4 (`mvdetr_tpu/cli.py:228-241`)
+    attn_radius = args.attn_radius
+    if attn_radius is None and args.load_torch_ckpt and args.attn_mode != "gather":
+        from mvdetr_tpu_torch.interop import read_torch_checkpoint, suggest_attn_radius
+
+        attn_radius, reach = suggest_attn_radius(read_torch_checkpoint(args.load_torch_ckpt))
+        print(f"auto attn_radius {attn_radius} (checkpoint max |sampling_offsets bias| "
+              f"{reach:.2f} cells; override with --attn_radius N, exact semantics with "
+              f"--attn_mode gather)")
+    if attn_radius is None:
+        attn_radius = 4
+
     model = MVDeTr.from_rig(
         rig, world_reduce=args.world_reduce, img_reduce=args.img_reduce, arch=args.arch,
         world_feat_arch=args.world_feat, bottleneck_dim=args.bottleneck_dim,
         outfeat_dim=args.outfeat_dim, dropout=args.dropout,
         compute_dtype=torch.bfloat16 if args.bf16 else None,
-        attn_mode=args.attn_mode, attn_radius=4 if args.attn_radius is None else args.attn_radius,
-        n_points=args.n_points, warp_convention=args.warp_convention or "center",
+        attn_mode=args.attn_mode, attn_radius=attn_radius, n_points=args.n_points,
+        warp_convention=args.warp_convention or ("kornia" if args.load_torch_ckpt else "center"),
         device=device, seed=args.seed,
     )
 
@@ -250,7 +271,9 @@ def main(args=None):
         start_epoch = trainer.state.step // steps_per_epoch + 1
         print(f"resume_train: restored step {trainer.state.step} "
               f"-> continuing at epoch {start_epoch}/{args.epochs}")
-    if args.resume is None:
+    if args.load_torch_ckpt:
+        _load_reference_checkpoint(args, trainer.state.model)
+    elif args.resume is None:
         draw = importlib.util.find_spec("matplotlib") is not None
         if not draw:
             print("NOTE: matplotlib is not installed; no learning_curve.jpg is drawn")
@@ -277,6 +300,40 @@ def main(args=None):
     print("Test loaded model...")
     trainer.test(batch_size=args.batch_size, res_fpath=res_fpath)
     return trainer
+
+
+def _load_reference_checkpoint(args, model) -> None:
+    """``--load_torch_ckpt``: check the checkpoint's configuration against
+    the flags (a mismatch exits with the flags to pass), then load it into
+    ``model`` strictly (`mvdetr_tpu/cli.py:299-326`)."""
+    from mvdetr_tpu_torch.interop import (
+        check_ported_config, detect_reference_config, read_torch_checkpoint,
+    )
+    from mvdetr_tpu_torch.train.state import load_state_dict_checked
+
+    print(f"Loading reference torch checkpoint {args.load_torch_ckpt} (eval only)")
+    if args.attn_mode not in ("gather",):
+        print("NOTE: reference checkpoints train with unbounded offsets; "
+              "--attn_mode gather is reference-exact (slow). The fast paths clamp "
+              "offsets to --attn_radius — watch the offset_clip_fraction diagnostic.")
+    sd = read_torch_checkpoint(args.load_torch_ckpt)
+    ckpt_cfg = detect_reference_config(sd)
+    flag_cfg = {"arch": args.arch, "world_feat_arch": args.world_feat,
+                "bottleneck_dim": args.bottleneck_dim, "outfeat_dim": args.outfeat_dim,
+                "n_points": args.n_points}
+    mismatched = {k: (flag_cfg[k], v) for k, v in ckpt_cfg.items()
+                  if k in flag_cfg and flag_cfg[k] != v}
+    if mismatched:
+        flags = {"arch": "--arch", "world_feat_arch": "--world_feat",
+                 "bottleneck_dim": "--bottleneck_dim", "outfeat_dim": "--outfeat_dim",
+                 "n_points": "--n_points"}
+        hint = " ".join(f"{flags[k]} {v}" for k, (_, v) in mismatched.items())
+        raise SystemExit(
+            f"checkpoint config mismatch {mismatched} (flag value, checkpoint value); "
+            f"rerun with: {hint}"
+        )
+    check_ported_config(ckpt_cfg)
+    load_state_dict_checked(model, sd, what="reference checkpoint")
 
 
 def _snapshot_source(logdir: str) -> None:

@@ -1,4 +1,5 @@
-"""Weights bridge: JAX ``MVDeTr`` variables -> the port's ``state_dict``.
+"""Weights bridges: JAX ``MVDeTr`` variables -> the port's ``state_dict``,
+and the reference ``MultiviewDetector.pth`` -> the port's model.
 
 The port names its parameters like the reference ``MultiviewDetector.pth``
 that ``mvdetr_tpu/interop.py:134-259`` reads (``base.{0,1,4..7}.*``,
@@ -12,10 +13,17 @@ back the JAX variables this function started from.
 Conversions: conv kernels HWIO -> OIHW, Dense ``[in, out]`` -> Linear
 ``[out, in]``, BatchNorm/LayerNorm ``scale`` -> ``weight`` with the running
 ``mean``/``var`` as ``running_mean``/``running_var``.
+
+The reference checkpoint needs no conversion: :func:`load_torch_checkpoint`
+reads it, reads its configuration from its keys
+(:func:`detect_reference_config`) and copies it into the model, strictly;
+:func:`suggest_attn_radius` picks the windowed clamp radius that covers its
+offsets' biases. These three are copied from ``mvdetr_tpu/interop.py:162-227,345-355``.
 """
 
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 
 import numpy as np
@@ -25,11 +33,14 @@ from mvdetr_tpu_torch.device import resolve_device
 
 _HEADS = ("img_heatmap", "img_offset", "img_wh", "world_heatmap", "world_offset")
 _DEFORM_TRANS_KEYS = {"downsample", "lvl_embedding", "encoder", "merge", "up"}
+_AIO_KEYS = {"merge", "encoder", "output"}
+# the (arch, world_feat_arch) pairs the port builds
+_PORTED = {"arch": ("resnet18",), "world_feat_arch": ("deform_trans", "aio")}
 
 
 def from_jax_variables(variables: dict, device="cuda") -> "OrderedDict[str, torch.Tensor]":
     """``variables``: the JAX ``{"params", "batch_stats"}`` tree of a
-    ``deform_trans`` ResNet-18 ``MVDeTr``, as nested dicts of arrays (numpy,
+    ``deform_trans`` or ``aio`` ResNet-18 ``MVDeTr``, as nested dicts of arrays (numpy,
     or anything ``np.asarray`` reads). Returns the port's state_dict with
     tensors on ``device`` (default the card)."""
     dev = resolve_device(device)
@@ -82,24 +93,132 @@ def from_jax_variables(variables: dict, device="cuda") -> "OrderedDict[str, torc
         else:
             conv(f"{head}.0", node["proj"])
 
+    def encoder(node):
+        i = 0
+        while f"layer{i}" in node:
+            layer, pre = node[f"layer{i}"], f"world_feat.encoder.layers.{i}"
+            for proj in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+                dense(f"{pre}.self_attn.{proj}", layer["self_attn"][proj])
+            norm(f"{pre}.norm1", layer["norm1"])
+            dense(f"{pre}.linear1", layer["linear1"])
+            dense(f"{pre}.linear2", layer["linear2"])
+            norm(f"{pre}.norm2", layer["norm2"])
+            i += 1
+
     wf = params["world_feat"]
-    if set(wf) != _DEFORM_TRANS_KEYS:
+    if set(wf) == _DEFORM_TRANS_KEYS:
+        conv("world_feat.downsample.0", wf["downsample"])
+        sd["world_feat.lvl_embedding"] = np.asarray(wf["lvl_embedding"])
+        encoder(wf["encoder"])
+        conv("world_feat.merge_linear.0", wf["merge"])
+        conv("world_feat.upsample.1", wf["up"])
+    elif set(wf) == _AIO_KEYS:
+        conv("world_feat.merge.0", wf["merge"])
+        encoder(wf["encoder"])
+        conv("world_feat.output.0", wf["output"])
+    else:
         raise NotImplementedError(
-            f"world_feat parameters {sorted(wf)} are not the shadow transformer's; the other "
+            f"world_feat parameters {sorted(wf)} are neither the shadow transformer's nor aio's; the other "
             "variants wait for ROADMAP item A.7"
         )
-    conv("world_feat.downsample.0", wf["downsample"])
-    sd["world_feat.lvl_embedding"] = np.asarray(wf["lvl_embedding"])
-    i = 0
-    while f"layer{i}" in wf["encoder"]:
-        layer, pre = wf["encoder"][f"layer{i}"], f"world_feat.encoder.layers.{i}"
-        for proj in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
-            dense(f"{pre}.self_attn.{proj}", layer["self_attn"][proj])
-        norm(f"{pre}.norm1", layer["norm1"])
-        dense(f"{pre}.linear1", layer["linear1"])
-        dense(f"{pre}.linear2", layer["linear2"])
-        norm(f"{pre}.norm2", layer["norm2"])
-        i += 1
-    conv("world_feat.merge_linear.0", wf["merge"])
-    conv("world_feat.upsample.1", wf["up"])
     return OrderedDict((k, torch.from_numpy(np.array(v)).to(dev)) for k, v in sd.items())
+
+
+def _strip_module(state_dict) -> dict:
+    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in state_dict.items()}
+
+
+def _count_layers(sd: dict, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in sd:
+        n += 1
+    return n
+
+
+def detect_reference_config(state_dict) -> dict:
+    """Infer (arch, world_feat_arch, bottleneck_dim, outfeat_dim, num_cam,
+    n_points) from a reference state_dict's key structure: the JAX
+    function's result, key for key (``num_cam`` and ``n_points`` only where
+    it reads them)."""
+    sd = _strip_module(state_dict)
+    shape = lambda k: tuple(sd[k].shape)  # noqa: E731
+    cfg = {}
+    cfg["arch"] = "resnet18" if shape("base.0.weight")[2] == 7 else "vgg11"
+    cfg["bottleneck_dim"] = int(shape("bottleneck.0.weight")[0]) if "bottleneck.0.weight" in sd else 0
+    cfg["outfeat_dim"] = int(shape("img_heatmap.0.weight")[0]) if "img_heatmap.2.weight" in sd else 0
+    if "world_feat.lvl_embedding" in sd:
+        cfg["world_feat_arch"] = "deform_trans"
+        cfg["num_cam"] = int(shape("world_feat.lvl_embedding")[0])
+        # sampling_offsets out = heads * levels(=num_cam) * points * 2 (`ms_deform_attn.py:55`); only the
+        # product is in the shapes, and the reference hard-wires 8 heads (`trans_world_feat.py:76`)
+        off = int(shape("world_feat.encoder.layers.0.self_attn.sampling_offsets.weight")[0])
+        nhead = 8
+        denom = nhead * cfg["num_cam"] * 2
+        if off % denom or not 1 <= off // denom <= 16:
+            raise ValueError(
+                f"sampling_offsets out-dim {off} is inconsistent with the assumed "
+                f"{nhead} attention heads x {cfg['num_cam']} cameras "
+                f"(`trans_world_feat.py:76` hard-wires nhead=8); this checkpoint "
+                f"was likely trained with a modified nhead — conversion needs a "
+                f"matching MSDeformAttn config."
+            )
+        cfg["n_points"] = off // denom
+    elif "world_feat.encoder.layers.0.self_attn.in_proj_weight" in sd:
+        cfg["world_feat_arch"] = "trans"
+    elif "world_feat.encoder.layers.0.self_attn.value_proj.weight" in sd:
+        cfg["world_feat_arch"] = "aio"
+    elif "world_feat.deform_conv.0.weight" in sd:
+        cfg["world_feat_arch"] = "deform_conv"
+        cfg["num_cam"] = _count_layers(sd, "world_feat.deform_conv.{}.weight")
+    else:
+        cfg["world_feat_arch"] = "conv"
+    return cfg
+
+
+def suggest_attn_radius(state_dict, lo: int = 4, hi: int = 16):
+    """The windowed clamp radius for a reference checkpoint, from its
+    ``sampling_offsets`` biases: ``ceil(max|b|) + 1``, clamped to
+    ``[lo, hi]``. The offsets head is ``W @ query + b`` with ``W``
+    zero-initialised, so after training the bias carries the bulk of the
+    reach; what ``W`` adds shows in the eval ``offset_clip_fraction`` line.
+    B1 takes any radius. Returns ``(radius, max_abs_bias)``."""
+    sd = _strip_module(state_dict)
+    biases = [v for k, v in sd.items() if k.endswith("sampling_offsets.bias")]
+    if not biases:
+        return lo, 0.0
+    reach = max(float(torch.as_tensor(b).abs().max()) for b in biases)
+    return int(min(max(math.ceil(reach) + 1, lo), hi)), reach
+
+
+def read_torch_checkpoint(path: str) -> dict:
+    """A reference ``MultiviewDetector.pth``'s state_dict, on the CPU:
+    ``torch.load(weights_only=True)``, unwrapped from ``{"state_dict": ...}``
+    and with the ``module.`` prefix of ``DataParallel`` stripped."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd and not any(hasattr(v, "shape") for v in sd.values()):
+        sd = sd["state_dict"]
+    return _strip_module(sd)
+
+
+def check_ported_config(cfg: dict) -> None:
+    """Raise unless the port builds a checkpoint of configuration ``cfg``."""
+    for key, ported in _PORTED.items():
+        if cfg[key] not in ported:
+            raise NotImplementedError(f"reference checkpoint with {key} {cfg[key]!r}: waits for ROADMAP item A.7 "
+                                      f"(the other modes and variants); the port has {', '.join(ported)}")
+
+
+def load_torch_checkpoint(path: str, model: torch.nn.Module, with_config: bool = False):
+    """Load the reference ``MultiviewDetector.pth`` at ``path`` into the
+    port's ``model``: :func:`read_torch_checkpoint`, then every parameter
+    and BatchNorm statistic copied under the checkpoint's own names, strictly
+    (a missing, unused or misshapen key raises, as
+    ``convert_reference_state_dict(strict=True)`` does). Returns the model,
+    and the :func:`detect_reference_config` result when ``with_config``."""
+    from mvdetr_tpu_torch.train.state import load_state_dict_checked
+
+    sd = read_torch_checkpoint(path)
+    cfg = detect_reference_config(sd)
+    check_ported_config(cfg)
+    load_state_dict_checked(model, sd, what="reference checkpoint")
+    return (model, cfg) if with_config else model

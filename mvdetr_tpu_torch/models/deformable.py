@@ -1,19 +1,23 @@
 """Deformable-attention modules, port of ``mvdetr_tpu/models/deformable.py``.
 
-Two attention modes, both on aligned same-shape grids whose queries are the
-``C`` camera copies of the grid:
+Three attention modes, on same-shape levels:
 
 - ``windowed``: the reference map is the identity grid (the ``n_points=4``
-  flagship); each sample sits at its query's cell plus a learned offset
-  clamped to ``+-radius``, through
+  flagship) and the queries are the ``C`` camera copies of the grid; each
+  sample sits at its query's cell plus a learned offset clamped to
+  ``+-radius``, through
   :func:`mvdetr_tpu_torch.ops.msda_windowed.windowed_attention` (B1 and B2
   on the card);
-- ``warped``: a general reference map such as the 8-point shadow map; the
-  value stack is resampled at the map once, then sampled windowed over the
-  ``L*P`` pseudo-levels (:func:`mvdetr_tpu_torch.ops.msda_warped.ms_deform_attn_warped`:
-  B1 and B2, and B3 for the warp's backward, on the card).
-
-The ``gather`` mode (reference-exact arbitrary sampling) raises.
+- ``warped``: a general reference map such as the 8-point shadow map, the
+  same camera-copy queries; the value stack is resampled at the map once,
+  then sampled windowed over the ``L*P`` pseudo-levels
+  (:func:`mvdetr_tpu_torch.ops.msda_warped.ms_deform_attn_warped`: B1 and
+  B2, and B3 for the warp's backward, on the card);
+- ``gather``: the reference semantics, with any queries (such as the
+  ``aio`` variant's one per BEV cell) and unbounded offsets: each sample at
+  ``reference + offset / [W, H]``
+  (:func:`mvdetr_tpu_torch.ops.msda.ms_deform_attn_gather`: a plain gather
+  forward, and B3 for the value's gradient on the card).
 
 Parameter names follow the reference checkpoint
 (``self_attn.{value_proj,sampling_offsets,attention_weights,output_proj}``,
@@ -31,11 +35,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mvdetr_tpu_torch.models.layers import Dropout, LayerNorm, Linear
+from mvdetr_tpu_torch.ops.msda import fma, ms_deform_attn_gather
 from mvdetr_tpu_torch.ops.msda_warped import ms_deform_attn_warped, shadow_coords
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 
-_MODES = ("windowed", "warped")
-_MODES_LATER = "the 'gather' attention mode waits for ROADMAP item A.7"
+_MODES = ("windowed", "warped", "gather")
 
 
 def radial_offset_bias(n_heads: int, n_levels: int, n_points: int,
@@ -54,6 +58,30 @@ def radial_offset_bias(n_heads: int, n_levels: int, n_points: int,
     return grid.reshape(-1).astype(np.float32)
 
 
+def grid_reference_points(spatial_shapes) -> np.ndarray:
+    """Per-level half-centre reference grid, normalised, ``[S, L, 2]``
+    (`deformable_transformer.py:29-41`): the map of an encoder built without
+    one. Copied from the JAX module."""
+    refs = []
+    for h, w in spatial_shapes:
+        ys, xs = np.meshgrid(
+            np.linspace(0.5, h - 0.5, int(h)) / h, np.linspace(0.5, w - 0.5, int(w)) / w, indexing="ij"
+        )
+        refs.append(np.stack([xs, ys], -1).reshape(-1, 2))
+    ref = np.concatenate(refs, 0)  # [S, 2]
+    return np.tile(ref[:, None, :], (1, len(spatial_shapes), 1)).astype(np.float32)  # [S, L, 2]
+
+
+def sampling_locations(reference_points: torch.Tensor, offsets: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Gather mode's ``ref + offsets / [W, H]`` in f32 (`deformable.py:203`),
+    with XLA's arithmetic on the CPU: the division by the constant becomes a
+    product with its f32 reciprocal, contracted with the sum into one fused
+    multiply-add (:func:`mvdetr_tpu_torch.ops.msda.fma`). Differentiable in
+    ``offsets`` (the cotangent times the reciprocal, as in JAX)."""
+    recip = 1.0 / torch.tensor([float(w), float(h)], dtype=torch.float32, device=offsets.device)
+    return fma(offsets, recip, reference_points)
+
+
 def offset_clip_fraction(offsets: torch.Tensor, radius: float) -> torch.Tensor:
     """Fraction of offset components the windowed clamp binds: the mean over
     each sample's components, then over the batch (the JAX "staged" form)."""
@@ -62,29 +90,33 @@ def offset_clip_fraction(offsets: torch.Tensor, radius: float) -> torch.Tensor:
 
 
 class MSDeformAttn(nn.Module):
-    """Multi-scale deformable attention over ``n_levels`` same-shape grids
-    whose queries are the ``C`` aligned copies of the grid.
+    """Multi-scale deformable attention over ``n_levels`` same-shape grids.
 
-    ``warped`` mode takes the static reference map ``reference_points``
-    (``[Q, L, P, 2]``, or ``[Q, L, 2]`` tiled to the ``P`` points, with ``Q``
-    a multiple of the ``spatial_shape`` grid's cells): the camera copies of
-    the queries share its first ``H*W`` rows (`deformable.py:214-216`). Its
-    pixel coordinates are a non-persistent buffer, so ``state_dict`` keeps
-    the reference checkpoint's names."""
+    ``windowed`` and ``warped`` modes take queries that are the ``C``
+    aligned copies of the grid. ``warped`` mode takes the static reference
+    map ``reference_points`` (``[Q, L, P, 2]``, or ``[Q, L, 2]`` tiled to the
+    ``P`` points, with ``Q`` a multiple of the ``spatial_shape`` grid's
+    cells): the camera copies of the queries share its first ``H*W`` rows
+    (`deformable.py:214-216`), held as pixel coordinates. ``gather`` mode
+    takes any ``Q`` queries and their map (``[Q, L, P, 2]`` or ``[Q, L, 2]``,
+    normalised; required), held as it is. Either buffer is non-persistent,
+    so ``state_dict`` keeps the reference checkpoint's names. Only the
+    clamped modes rescale the offsets' radial init to ``radius``
+    (`deformable.py:158`)."""
 
     def __init__(self, d_model: int = 128, n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
                  dtype: torch.dtype = torch.float32, mode: str = "windowed", radius: int = 4,
                  generator=None, reference_points: Optional[np.ndarray] = None, spatial_shape=None):
         super().__init__()
         if mode not in _MODES:
-            raise NotImplementedError(f"MSDeformAttn mode {mode!r}: {_MODES_LATER}")
+            raise ValueError(f"unknown MSDeformAttn mode {mode!r}; the modes are {_MODES}")
         self.d_model, self.n_levels, self.n_heads, self.n_points = d_model, n_levels, n_heads, n_points
         self.dtype, self.radius, self.mode = dtype, radius, mode
         m, l, p = n_heads, n_levels, n_points
         self.value_proj = Linear(d_model, d_model, dtype, generator=generator)
-        # the clamp rescales the rings in both modes (`deformable.py:158-162`)
+        max_r = float(radius) if mode in ("windowed", "warped") else None  # `deformable.py:158-162`
         self.sampling_offsets = Linear(d_model, m * l * p * 2, dtype, init="zeros",
-                                       bias_init=radial_offset_bias(m, l, p, max_radius=float(radius)))
+                                       bias_init=radial_offset_bias(m, l, p, max_radius=max_r))
         self.attention_weights = Linear(d_model, m * l * p, dtype, init="zeros")
         self.output_proj = Linear(d_model, d_model, dtype, generator=generator)
         if mode == "warped":
@@ -100,10 +132,24 @@ class MSDeformAttn(nn.Module):
                                  f"{l} levels, {p} points")
             self.spatial_shape = (h, w)
             self.register_buffer("shadow_xy", shadow_coords(ref, h, w), persistent=False)
+        elif mode == "gather":
+            if reference_points is None:
+                raise ValueError("gather mode needs reference_points")
+            ref = np.asarray(reference_points, dtype=np.float32)
+            if ref.ndim == 3:
+                ref = ref[:, :, None, :]
+            if ref.ndim != 4 or ref.shape[1] != l or ref.shape[2] not in (1, p) or ref.shape[3] != 2:
+                raise ValueError(f"gather mode: reference map {ref.shape} does not fit {l} levels, {p} points")
+            # [Q, 1, L, P or 1, 2]: broadcast over the heads (and the points), as `deformable.py:190-193`
+            self.register_buffer("reference_points", torch.from_numpy(ref[:, None].copy()), persistent=False)
 
     def forward(self, query: torch.Tensor, input_flatten: torch.Tensor, spatial_shape):
         """``query [B, Q, C]``, ``input_flatten [B, S, C]`` (level-major, every
-        level ``spatial_shape = (H, W)``) -> ``(out [B, Q, C], offset_clip_fraction)``."""
+        level ``spatial_shape = (H, W)``) -> ``(out [B, Q, C],
+        offset_clip_fraction)``; the fraction is None in ``gather`` mode,
+        which clamps nothing (JAX sows none there)."""
+        if self.mode == "gather":
+            return self._gather(query, input_flatten, spatial_shape), None
         m, l, p = self.n_heads, self.n_levels, self.n_points
         d = self.d_model // m
         b, q, _ = query.shape
@@ -126,6 +172,19 @@ class MSDeformAttn(nn.Module):
         else:
             out = windowed_attention(value, offsets, weights, radius=self.radius)
         return self.output_proj(out), clip
+
+    def _gather(self, query, input_flatten, spatial_shape):
+        m, l, p = self.n_heads, self.n_levels, self.n_points
+        b, q, _ = query.shape
+        h, w = (int(v) for v in spatial_shape)
+        if q != self.reference_points.shape[0]:
+            raise ValueError(f"gather mode: {q} queries, the reference map has {self.reference_points.shape[0]}")
+        value = self.value_proj(input_flatten).reshape(b, input_flatten.shape[1], m, self.d_model // m)
+        offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2).float()
+        weights = F.softmax(self.attention_weights(query).reshape(b, q, m, l * p).float(), dim=-1)
+        weights = weights.reshape(b, q, m, l, p).to(value.dtype)
+        locations = sampling_locations(self.reference_points, offsets, h, w)
+        return self.output_proj(ms_deform_attn_gather(value, (h, w), l, locations, weights))
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -160,15 +219,21 @@ class DeformableEncoderLayer(nn.Module):
 
 class DeformableEncoder(nn.Module):
     """``num_layers`` encoder layers; returns the tokens and the per-layer
-    ``offset_clip_fraction`` list (the JAX module sows it instead).
-    ``reference_points`` and ``spatial_shape``: the static map of ``warped``
-    mode (see :class:`MSDeformAttn`)."""
+    ``offset_clip_fraction`` list (the JAX module sows it instead; empty in
+    ``gather`` mode). ``reference_points`` and ``spatial_shape``: the static
+    map of ``warped`` and ``gather`` mode (see :class:`MSDeformAttn`); in
+    ``gather`` mode without a map, :func:`grid_reference_points` of the
+    ``n_levels`` levels of ``spatial_shape``."""
 
     def __init__(self, num_layers: int = 3, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32,
                  mode: str = "windowed", radius: int = 4, generator=None,
                  reference_points: Optional[np.ndarray] = None, spatial_shape=None):
         super().__init__()
+        if mode == "gather" and reference_points is None:
+            if spatial_shape is None:
+                raise ValueError("gather mode without reference_points needs spatial_shape")
+            reference_points = grid_reference_points((tuple(spatial_shape),) * n_levels)
         self.layers = nn.ModuleList([
             DeformableEncoderLayer(d_model, d_ffn, dropout, n_levels, n_heads, n_points, dtype, mode, radius,
                                    generator, reference_points, spatial_shape)
@@ -179,5 +244,6 @@ class DeformableEncoder(nn.Module):
         clips = []
         for layer in self.layers:
             src, clip = layer(src, pos, spatial_shape)
-            clips.append(clip)
+            if clip is not None:
+                clips.append(clip)
         return src, clips

@@ -9,7 +9,9 @@ Pipeline:
 3. per-view heads (center heatmap, sub-cell offset, box size);
 4. the per-view features are warped onto the reduced BEV grid by the
    homography ``proj @ inv(affine) @ diag(img_reduce)`` (`mvdetr.py:170-175`);
-5. the shadow transformer fuses the cameras (encoder dropout
+5. the BEV fusion (``world_feat_arch``: the shadow transformer
+   ``deform_trans`` in ``attn_mode`` windowed, warped or gather, or the
+   merge-first ``aio``) fuses the cameras (encoder dropout
    ``encoder_dropout``, 0.1 as in JAX);
 6. BEV heads: occupancy heatmap and offset.
 

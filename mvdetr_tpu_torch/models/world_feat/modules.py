@@ -1,9 +1,11 @@
 """BEV multiview fusion, port of ``mvdetr_tpu/models/world_feat/modules.py``.
 
-Only the shadow transformer (``DeformTransWorldFeat``) is ported, in the
-``windowed`` mode (the identity reference map of ``n_points=4``) and the
-``warped`` mode (a general map, such as the 8-point shadow map);
-``build_world_feat`` raises for the other four variants (ROADMAP item A.7).
+Two variants are ported: the shadow transformer (``DeformTransWorldFeat``),
+in the ``windowed`` mode (the identity reference map of ``n_points=4``), the
+``warped`` mode (a general map, such as the 8-point shadow map) and the
+``gather`` mode (the reference semantics), and the merge-first variant
+(``DeformTransWorldFeatAIO``, ``gather`` mode on one level);
+``build_world_feat`` raises for the other three (ROADMAP item A.7).
 """
 
 from __future__ import annotations
@@ -98,8 +100,8 @@ class DeformTransWorldFeat(nn.Module):
 
     The attention mode is resolved at construction, from ``reference_points``
     (``[N*Hs*Ws, N, P, 2]``, `models/mvdetr.py:129-130`), since the grid size
-    is known from ``world_shape`` already; ``warped`` mode hands the map to
-    the encoder.
+    is known from ``world_shape`` already; ``warped`` and ``gather`` modes
+    hand the map to the encoder (`modules.py:166-181`).
     """
 
     def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128,
@@ -122,7 +124,7 @@ class DeformTransWorldFeat(nn.Module):
             nn.init.normal_(self.lvl_embedding, 0.0, 1.0, generator=generator)
         self.encoder = DeformableEncoder(3, hidden_dim, dim_feedforward, dropout, num_cam, nhead, n_points, dtype,
                                          self.mode, attn_radius, generator,
-                                         reference_points if self.mode == "warped" else None, self.grid)
+                                         reference_points if self.mode in ("warped", "gather") else None, self.grid)
         self.merge_linear = nn.Sequential(
             Conv2d(num_cam * hidden_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
             nn.ReLU(),
@@ -154,18 +156,68 @@ class DeformTransWorldFeat(nn.Module):
         return y.permute(0, 2, 3, 1), clips
 
 
+class DeformTransWorldFeatAIO(nn.Module):
+    """Merge the views first, then a single-level deformable encoder
+    (`trans_world_feat.py:122-154`, `mvdetr_tpu/models/world_feat/modules.py:194-226`):
+    a 1x1 conv over the ``N*C`` camera-major channels, three ``gather``-mode
+    encoder layers over the ``H*W`` BEV cells on one level at the standard
+    grid reference map (4 points, the radial init unscaled), a 1x1 output
+    conv. ``[B, N, H, W, C]`` NHWC in, ``[B, H, W, C]`` NHWC out. The JAX
+    module takes no attention mode, radius or point count; neither does
+    this one."""
+
+    mode = "gather"
+
+    def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128, hidden_dim: int = 128,
+                 nhead: int = 8, dim_feedforward: int = 512, dropout: float = 0.1,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.num_cam, self.hidden_dim = num_cam, hidden_dim
+        self.world_shape = tuple(int(v) for v in world_shape)
+        self.merge = nn.Sequential(
+            Conv2d(num_cam * base_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
+            nn.ReLU(),
+        )
+        self.encoder = DeformableEncoder(3, hidden_dim, dim_feedforward, dropout, 1, nhead, 4, dtype, "gather",
+                                         generator=generator, spatial_shape=self.world_shape)
+        self.output = nn.Sequential(
+            Conv2d(hidden_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
+            nn.ReLU(),
+        )
+        h, w = self.world_shape
+        pos = torch.from_numpy(sine_pos_embedding((h, w), hidden_dim // 2)).reshape(1, h * w, hidden_dim)
+        self.register_buffer("pos", pos, persistent=False)
+
+    def forward(self, x: torch.Tensor):
+        """Returns ``(y [B, H, W, C], [])``: gather mode clamps nothing."""
+        b, n, h, w, c = x.shape
+        if (h, w) != self.world_shape:
+            raise ValueError(f"input grid {h}x{w} does not match world_shape {self.world_shape}")
+        # camera-major channels: [B, N, H, W, C] -> [B, H, W, N*C] (`modules.py:208`)
+        y = x.permute(0, 2, 3, 1, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
+        y = self.merge(y)
+        tokens = y.permute(0, 2, 3, 1).reshape(b, h * w, self.hidden_dim)
+        tokens, clips = self.encoder(tokens, (h, w), self.pos.to(y.dtype))
+        y = tokens.reshape(b, h, w, self.hidden_dim).permute(0, 3, 1, 2)
+        return self.output(y).permute(0, 2, 3, 1), clips
+
+
 def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
                      reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                      dtype: torch.dtype = torch.float32, attn_mode: str = "auto", attn_radius: int = 4,
                      dropout: float = 0.1, generator=None) -> nn.Module:
-    """Variant dispatch; ``deform_trans`` only in this slice. ``dropout`` is
-    the encoder's rate: 0.1 as in the JAX module (`modules.py:125`), which
-    does not expose it."""
+    """Variant dispatch: ``deform_trans`` and ``aio`` (which, as in JAX,
+    takes no reference map, point count, mode or radius). ``dropout`` is the
+    encoder's rate: 0.1 as in the JAX modules (`modules.py:125,201`), which
+    do not expose it."""
     if arch == "deform_trans":
         return DeformTransWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
                                     n_points=n_points, reference_points=reference_points, dtype=dtype,
                                     attn_mode=attn_mode, attn_radius=attn_radius, generator=generator)
-    if arch in ("conv", "trans", "aio", "deform_conv"):
+    if arch == "aio":
+        return DeformTransWorldFeatAIO(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
+                                       dtype=dtype, generator=generator)
+    if arch in ("conv", "trans", "deform_conv"):
         raise NotImplementedError(f"world_feat {arch!r} waits for ROADMAP item A.7 (the other modes and variants); "
-                                  "the port has deform_trans")
+                                  "the port has deform_trans and aio")
     raise ValueError(f"unknown world_feat arch: {arch}")

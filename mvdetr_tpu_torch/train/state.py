@@ -9,9 +9,11 @@ statistics), the optimizer, the schedule and the step count.
   onto ``base.*``: the counterpart of ``load_torchvision_state_dict``
   (`mvdetr_tpu/models/resnet.py:126`).
 - :func:`load_full_variables`: JAX-shaped numpy variables of the whole model
-  through :func:`mvdetr_tpu_torch.interop.from_jax_variables`.
+  through :func:`mvdetr_tpu_torch.interop.from_jax_variables`;
+- :func:`load_state_dict_checked`: a state dict under the model's own names
+  (a reference checkpoint's, :func:`mvdetr_tpu_torch.interop.load_torch_checkpoint`).
 
-Both loads are strict and shape-checked: a converted tree that does not
+All loads are strict and shape-checked: a converted tree that does not
 match the model raises instead of training from garbage.
 """
 
@@ -84,6 +86,12 @@ def load_full_variables(state: TrainState, variables: dict) -> TrainState:
     device = next(state.model.parameters()).device
     _load_checked(state.model, from_jax_variables(variables, device=device), prefix="", what="variables")
     return state
+
+
+def load_state_dict_checked(model: nn.Module, state_dict: Mapping, what: str = "state dict") -> None:
+    """Copy ``state_dict`` (the model's own names) into every parameter and
+    BatchNorm statistic of ``model``, strictly and shape-checked."""
+    _load_checked(model, state_dict, prefix="", what=what)
 
 
 def _load_checked(model: nn.Module, loaded: Mapping, prefix: str, what: str) -> None:

@@ -90,8 +90,8 @@ def test_epochs_per_process_then_resume_train_continues(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--view_shards", "2"], ["--bev_shards", "2"], ["--num_processes", "2"], ["--coordinator_address", "h:1"],
-    ["--load_torch_ckpt", "x.pth"], ["--visualize"], ["--arch", "vgg11"], ["--world_feat", "conv"],
-    ["--attn_mode", "gather"], ["--remat_backbone", "true"],
+    ["--world_feat", "trans"], ["--visualize"], ["--arch", "vgg11"], ["--world_feat", "conv"],
+    ["--world_feat", "deform_conv"], ["--remat_backbone", "true"],
 ])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)

@@ -24,7 +24,10 @@ from mvdetr_tpu_torch.ops import warp as warp_ops
 from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
-from chip_smoke import WARP_STRESS_NAMES, bwd_case, fwd_case, shadow_warp_inputs, warp_case, warp_stress_cases
+from chip_smoke import (
+    RECIPE_GATHER_ATTENTION, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu, gather_inputs, gather_run,
+    gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -215,6 +218,72 @@ def test_warped_model_steps_launch_each_kernel_on_card(cuda_device):
         torch.cuda.synchronize()
         final = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
         assert tuple(a - b for a, b in zip(final, after)) == (3, 3, 4)
+        assert np.isfinite(float(aux["loss"]))
+        runs.append((float(aux["loss"]), {n: p.detach().clone() for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    for n, p in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][n]), n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_backward_repeats_bitwise_on_card(dtype, cuda_device):
+    """Gather attention at the recipe's shape: two forwards and backwards
+    from the same inputs give the same bits, the value's gradient from one
+    B3 launch each (no float atomic on the path)."""
+    rng = np.random.default_rng(4)
+    value, off, wgt, ref = gather_inputs(rng, **RECIPE_GATHER_ATTENTION, reach=6.0)
+    g = torch.from_numpy(rng.standard_normal((1, 4 * 15 * 30, 128), dtype=np.float32)).cuda()
+    before = warp_bwd.launches
+    runs = [gather_run(value.to(dtype), off, wgt, ref, g.to(dtype), RECIPE_GATHER_ATTENTION) for _ in range(2)]
+    assert warp_bwd.launches == before + 2
+    for a, b in zip(*runs):
+        assert a.dtype in (dtype, torch.float32) and bool(torch.isfinite(a).all()) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_warp_bwd_at_gather_coordinates_on_card(dtype, cuda_device):
+    """B3 at the coordinates of gather attention's value gradient at the
+    recipe's shape (g [32, 7200, 16] onto 15x30; the radial init in bf16,
+    random offsets in f32): within rtol 2^-6 (bf16; 0 in f32) + 1e-5, of
+    scale, of the plain version, bitwise repeat."""
+    c = gather_warp_inputs(np.random.default_rng(5), RECIPE_GATHER_ATTENTION, dtype,
+                           reach=None if dtype == torch.bfloat16 else 6.0)
+    before = warp_bwd.launches
+    warp_case(f"gather-{dtype}", c["g"], c["sx"], c["sy"], c["h"], c["w"], scaled=True)
+    assert warp_bwd.launches == before + 2
+
+
+def test_gather_matches_cpu_and_windowed_on_card(cuda_device):
+    """Gather attention in f32 at the recipe's shape: the card's output and
+    three gradients against the CPU's (1e-5 of scale), and against B1/B2
+    where no clamp binds (2e-5 of scale)."""
+    rng = np.random.default_rng(6)
+    gather_card_vs_cpu("recipe", RECIPE_GATHER_ATTENTION, rng)  # each raises past its bound
+    gather_vs_windowed(rng, "recipe", RECIPE_GATHER_ATTENTION)
+
+
+@pytest.mark.parametrize("kw", [dict(attn_mode="gather"), dict(world_feat_arch="aio")], ids=["gather", "aio"])
+def test_gather_and_aio_models_launch_b3_per_layer_on_card(kw, cuda_device):
+    """A request launches no kernel; a bf16 train step B3 4 times (the camera
+    warp and each encoder layer's value gradient) and neither B1 nor B2;
+    two steps from the same state and generator repeat bitwise."""
+    rig = make_synthetic_rig(**RIG)
+    batch = synthetic_train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=0)
+    runs = []
+    for _ in range(2):
+        model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, compute_dtype=torch.bfloat16, device="cuda",
+                                seed=0, **kw)
+        assert model.world_feat.mode == "gather"
+        counts = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        aux, _, _ = eval_step(model, batch, world_reduce=2, num_candidates=64)
+        assert "offset_clip_fraction" not in aux
+        after = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        assert after == counts
+        state = create_train_state(model, lr=5e-4, total_steps=10)
+        state, aux = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        final = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        assert tuple(a - b for a, b in zip(final, after)) == (0, 0, 4)
         assert np.isfinite(float(aux["loss"]))
         runs.append((float(aux["loss"]), {n: p.detach().clone() for n, p in model.named_parameters()}))
     assert runs[0][0] == runs[1][0]

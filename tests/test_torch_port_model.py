@@ -217,6 +217,6 @@ def test_training_mode_and_other_variants_raise(setup):
     finally:
         port.eval()
     rig = make_synthetic_rig(**RIG)
-    for kw in (dict(world_feat_arch="conv"), dict(attn_mode="gather")):
+    for kw in (dict(world_feat_arch="conv"), dict(world_feat_arch="trans")):
         with pytest.raises(NotImplementedError, match=r"ROADMAP item A\.7"):
             MVDeTr.from_rig(rig, world_reduce=WORLD_REDUCE, device="cpu", **kw)

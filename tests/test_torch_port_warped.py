@@ -273,15 +273,16 @@ def test_msdeform_attn_warped_matches_jax(jax_variables):
 
 
 def test_msdeform_attn_takes_a_map_without_points_and_refuses_gather():
-    """A ``[Q, L, 2]`` map is tiled to the P points; gather mode raises."""
+    """A ``[Q, L, 2]`` map is tiled to the P points; a mode that does not
+    exist raises (gather mode runs: ``test_torch_port_gather.py``)."""
     hs, ws = 4, 5
     ref = _smooth_map(hs, ws, 2, 1, seed=9)[:, :, 0]  # [H*W, L, 2]
     a = MSDeformAttn(16, 2, 2, 8, mode="warped", reference_points=ref, spatial_shape=(hs, ws))
     b = MSDeformAttn(16, 2, 2, 8, mode="warped", reference_points=np.tile(ref[:, :, None], (1, 1, 8, 1)),
                      spatial_shape=(hs, ws))
     assert torch.equal(a.shadow_xy, b.shadow_xy) and a.shadow_xy.shape == (2, 2, hs * ws * 8)
-    with pytest.raises(NotImplementedError, match="'gather' attention mode"):
-        MSDeformAttn(16, 2, 2, 4, mode="gather")
+    with pytest.raises(ValueError, match="unknown MSDeformAttn mode 'bilinear'"):
+        MSDeformAttn(16, 2, 2, 4, mode="bilinear")
     with pytest.raises(ValueError, match="reference_points"):
         MSDeformAttn(16, 2, 2, 8, mode="warped")
 
