@@ -57,6 +57,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    radial init in bf16, timed, with its segments, its device time by stage
    and the library call; at random offsets in f32) and of aio's (g [16,
    172800, 16]), against its plain version with a bitwise repeat;
+4d. B3 at the coordinates of deform_conv's input gradient (a seeded
+   ``DeformConvWorldFeat``'s offsets on a random 7-camera 120x360 stack,
+   g [14, 388800, 128] f32) against its plain version with a bitwise
+   repeat, timed, with its segments, its device time by stage and the
+   library call; the module's forward and forward + backward timed, the
+   backward launching B3 once;
 5. B5, the lane broadcast / reduce experiment: each of its six variants
    against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
    the largest output), the variants against each other (``repeat`` tiles,
@@ -66,7 +72,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    which times every variant at 81 repetitions and at 1, at both sizes;
 6. a small model on the card against the same weights on the CPU, in f32:
    the inference forward, then one train step (loss, gradients, updated
-   parameters and BatchNorm statistics);
+   parameters and BatchNorm statistics); then each of ``conv``, ``trans``,
+   ``deform_conv``, ``vgg11`` and ``remat`` likewise (``SMALL_VARIANT_RTOL``),
+   and a card step with remat bitwise equal to the same step without;
 7. serving at Wildtrack width: 7 cameras, 720x1280 uint8 frames (1080x1920
    rig frames at img_reduce=12), 120x360 BEV, 60x180 encoder grid, shadow
    transformer at n_points=4 and radius 4, bf16 compute, batch 2; one
@@ -91,6 +99,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    then the ``aio`` model (1 + 1 requests, 1 + 3 steps, the same launches);
    each with profiles of a request and a step and the bitwise repeat of two
    steps (required);
+8d. serving (1 + 2 requests) and training (1 + 3 steps, bitwise repeat)
+   of ``conv``, ``trans``, ``deform_conv``, ``vgg11`` and ``remat`` at the
+   same width, bf16: B1/B2/B3 per step 0/0/1, 0/0/1, 0/0/2, 3/3/1, 3/3/1,
+   per request none or (windowed) 3/0/0; medians and peaks summarised
+   after the CLI phases;
 9. B3's device time at the flagship by stage and by device activity, from
    torch.profiler after the serve and train profiles: all but one memset of
    its sort must be kernels named ``warp_bwd``, and B3's share of the step
@@ -120,12 +133,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     radius 11 and launch B1 3 times per eval batch with no clamp binding; a
     wrong ``--n_points`` exits with the flag to pass; both print a MODA
     line, and their BEV heatmaps agree (on the CPU within 1e-4 of scale);
+    (e) each variant's flag through ``cli.main``: 2 epochs of the recipe
+    with ``--deterministic true``, its launches counted, MODA printed;
 11. one JSON line with each kernel's launches (by path: serve, train, cli,
     trainer, experiment, shadow: the n_points-8 serve, train and recipe
     runs, gather and aio: their serve and train runs, checkpoint: the
-    checkpoint evaluations), error, times and bound, B1/B2/B3's times at
-    the shadow shapes (``*_shadow``), B3's at gather's (``*_gather``, aio's
-    under ``aio_gather``) and the gather layer's times.
+    checkpoint evaluations; and each variant's serve, train and cli runs),
+    error, times and bound, B1/B2/B3's times at the shadow shapes
+    (``*_shadow``), B3's at gather's (``*_gather``, aio's under
+    ``aio_gather``) and deform_conv's (``*_deform_conv``), and the gather
+    layer's times.
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -932,6 +949,152 @@ def gather_forward(value, off, wgt, ref, shape):
                                      wgt.reshape(b, l * h * w, m, l, p).to(value.dtype))
 
 
+def deform_conv_warp_inputs(rng, shape=None, device="cuda") -> dict:
+    """B3's inputs on deform_conv's input gradient: the taps' coordinates of
+    a seeded ``DeformConvWorldFeat``'s offsets on a random BEV stack (as its
+    forward forms them: each map plus the embedding, each camera's 1x1
+    offset conv), laid out as the backward launches them, ``[N*B, 9*H*W]``
+    k-major, and g ``[N*B, 9*H*W, C]`` f32 from ``rng`` (the module computes
+    in f32 under --bf16 too), at DEFORM_CONV_SHAPE unless ``shape`` is given.
+    ``bev_hw`` lays the samples out as a grid for the library call. Also
+    returns the module and its input."""
+    import torch
+
+    from mvdetr_tpu_torch.models.world_feat import DeformConvWorldFeat
+    from mvdetr_tpu_torch.ops.deform_conv import tap_coords
+
+    b, n, h, w, c = ((shape or DEFORM_CONV_SHAPE)[k] for k in ("b", "n", "h", "w", "c"))
+    mod = DeformConvWorldFeat(n, (h, w), c, c, generator=torch.Generator().manual_seed(0)).to(device)
+    x = torch.from_numpy(rng.standard_normal((b, n, h, w, c), dtype=np.float32)).to(device)
+    with torch.no_grad():
+        off = mod.tap_offsets((x + mod.pos).movedim(1, 0))
+    sx, sy = tap_coords(off.reshape(n * b, h, w, 9, 2), 3, 3, torch.float32)
+    g = torch.from_numpy(rng.standard_normal((n * b, 9 * h * w, c), dtype=np.float32)).to(device)
+    return {"g": g, "sx": sx.reshape(n * b, -1).contiguous(), "sy": sy.reshape(n * b, -1).contiguous(), "h": h,
+            "w": w, "bev_hw": (9 * h, w), "module": mod, "x": x}
+
+
+def deform_conv_phase(rng) -> dict:
+    """B3 at the coordinates of deform_conv's input gradient at full width,
+    f32: against its plain version with a bitwise repeat, timed, with its
+    segments, its device time by stage and the library call; then the
+    module's forward and forward + backward timed (one B3 launch each
+    backward). Returns B3's record."""
+    import torch
+
+    from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    c = deform_conv_warp_inputs(rng)
+    seg = warp_segment_stats(c["sx"], c["sy"], c["h"], c["w"])
+    print(f"B3 deform_conv segments: {seg['nonempty']} of {seg['cells']} cells get a tap, {seg['entries_inside']} of "
+          f"{seg['entries']} entries inside; entries per non-empty cell mean {seg['mean']:.2f}, p90 {seg['p90']:.0f}, "
+          f"p99 {seg['p99']:.0f}, largest {seg['max']}; mean distance of x to the nearest pixel centre "
+          f"{float((c['sx'] - c['sx'].round()).abs().mean()):.3f}")
+    rec = warp_case("deform_conv-f32", c["g"], c["sx"], c["sy"], c["h"], c["w"], bev_hw=c["bev_hw"], scaled=True)
+    rec["segments"] = seg
+    rec["device_ms"] = warp_stage_ms(lambda: warp_bwd(c["g"], c["sx"], c["sy"], c["h"], c["w"]))
+    print("B3 deform_conv device time by stage: " + ", ".join(f"{k} {v:.4f} ms" for k, v in rec["device_ms"].items()))
+    mod, x = c["module"], c["x"]
+    del c
+    torch.cuda.empty_cache()
+    gy = torch.ones_like(x[:, 0])
+
+    def fwd_bwd():
+        xx = x.detach().requires_grad_()
+        mod(xx)[0].backward(gy)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: mod(x), 3)
+    before = warp_bwd.launches
+    fwd_bwd()
+    check(warp_bwd.launches == before + 1, f"deform_conv: {warp_bwd.launches - before} B3 launches in one backward")
+    rec["module_ms"] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": cuda_ms(fwd_bwd, 3)}
+    print(f"deform_conv world feat at full width (7 cameras, 120x360, f32): forward {fwd_ms:.3f} ms, forward and "
+          f"backward {rec['module_ms']['fwd_bwd_ms']:.3f} ms (B3 once a backward)")
+    del mod, x, gy
+    torch.cuda.empty_cache()
+    return rec
+
+
+def variants_card_vs_cpu() -> None:
+    """Each ported variant at a small size, the card against the CPU from the
+    same weights in f32 (TF32 off): the inference forward within
+    SMALL_VARIANT_RTOL of scale, one train step's loss within it, every
+    gradient at cosine >= 0.99 (0.8 where the card stages the attention value
+    in bf16) and, outside the trunk, within 1e-2 relative L2 (0.4); then, with
+    the library defaults, one step with remat on the card equal bit for bit to
+    the same step without."""
+    import torch
+
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.train import create_train_state, train_step
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    rig = make_synthetic_rig(num_cam=3, img_shape=(96, 160), worldgrid_shape=(48, 96))
+    batch = train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=3)
+    imgs, aff = torch.from_numpy(batch["imgs"]), torch.from_numpy(batch["affine_mats"])
+    for config, tol in SMALL_VARIANT_RTOL.items():
+        kw = FULL_WIDTH[config][0]
+        exact = tol < SMALL_MODEL_RTOL
+        cpu_model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, encoder_dropout=0.0, device="cpu", seed=1,
+                                    **kw)
+        perturb_attention(cpu_model, seed=2)
+        card_model = copy.deepcopy(cpu_model).cuda()
+        with torch.inference_mode():
+            ref, out = cpu_model(imgs, aff)[0], card_model(imgs.cuda(), aff.cuda())[0]
+        errs = [float((b.cpu() - a).abs().max()) / max(1.0, float(a.abs().max()))
+                for a, b in zip((*ref[0], *ref[1]), (*out[0], *out[1]))]
+        check(max(errs) <= tol, f"small {config}: card and CPU forwards differ by {max(errs)} of scale")
+        auxes, grads = {}, {}
+        for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+            state = create_train_state(model, lr=LR, total_steps=TOTAL_STEPS)
+            _, aux = train_step(state, batch, torch.Generator(device=dev).manual_seed(0), device=dev)
+            auxes[dev] = float(aux["loss"])
+            grads[dev] = {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+        rel = abs(auxes["cuda"] - auxes["cpu"]) / abs(auxes["cpu"])
+        worst_cos, worst_rel = 1.0, 0.0
+        for n, a in grads["cpu"].items():
+            b = grads["cuda"][n]
+            cos = float((a * b).sum() / (a.norm() * b.norm()).clamp_min(1e-30))
+            rel_l2 = float((a - b).norm() / a.norm().clamp_min(1e-30))
+            worst_cos = min(worst_cos, cos)
+            if not n.startswith("base."):
+                worst_rel = max(worst_rel, rel_l2)
+            check(cos >= (0.99 if exact else 0.8) and (n.startswith("base.") or rel_l2 <= (1e-2 if exact else 0.4)),
+                  f"small {config} {n}: gradient cosine {cos}, relative L2 {rel_l2}")
+        check(rel <= tol, f"small {config} train step: loss differs by {rel} relative")
+        print(f"small {config} f32 card vs cpu: forward within {max(errs):.3e} of scale (bound {tol}); train step "
+              f"loss cpu {auxes['cpu']:.6f}, card {auxes['cuda']:.6f} (relative {rel:.2e}), gradient cosine >= "
+              f"{worst_cos:.5f}, relative L2 outside the trunk <= {worst_rel:.3e}")
+        if config == "remat":
+            remat_model = copy.deepcopy(cpu_model)
+        del cpu_model, card_model
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = saved[0]
+    torch.set_float32_matmul_precision(saved[1])
+
+    # on the card, remat against the same step without it, with the library defaults (TF32 cuDNN convolutions), as
+    # serving and training run: with TF32 off, two identical f32 steps already differ there (cuDNN takes backward
+    # algorithms that are not deterministic), with or without remat
+    steps = []
+    for remat in (False, True):
+        model = copy.deepcopy(remat_model).cuda()
+        for m in model.modules():
+            if hasattr(m, "remat"):
+                m.remat = remat
+        state = create_train_state(model, lr=LR, total_steps=TOTAL_STEPS)
+        _, aux = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+        steps.append((float(aux["loss"]), {n: p.grad for n, p in model.named_parameters()}, model.state_dict()))
+    (l0, g0, s0), (l1, g1, s1) = steps
+    differ = [n for n in g0 if not torch.equal(g0[n], g1[n])] + [k for k in s0 if not torch.equal(s0[k], s1[k])]
+    print(f"small remat on the card: one step with remat equals the step without, bit for bit (loss, gradients, "
+          f"parameters and BatchNorm statistics): {l0 == l1 and not differ}; differing leaves {differ[:6]}")
+    check(l0 == l1 and not differ, "small remat: the step with remat differs from the step without on the card")
+
+
 def lane_phase() -> dict:
     """B5: each variant against its plain version and the variants against
     each other at both sizes, then the experiment's entry point as the
@@ -1092,7 +1255,7 @@ def profile_table(label, fn, wall_ms, names):
 def serve_full_width(rig, config="flagship", n_timed=3):
     """Serve 1 + ``n_timed`` requests of a ``FULL_WIDTH`` configuration;
     every request must launch B1/B2/B3 as the table says. Returns the
-    launches by kernel name."""
+    launches by kernel name, and the median request and peak memory."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
@@ -1105,7 +1268,8 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16,
                             attn_radius=4, device="cuda", seed=0, **kw)
     perturb_attention(model, seed=1)
-    check(model.world_feat.mode == mode, f"attention mode {model.world_feat.mode}, expected {mode}")
+    check(getattr(model.world_feat, "mode", None) == mode, f"{label}: attention mode "
+          f"{getattr(model.world_feat, 'mode', None)}, expected {mode}")
     rng = np.random.default_rng(0)
     batch = {"imgs": rng.integers(0, 256, (batch_size, 7, 720, 1280, 3), dtype=np.uint8),
              "affine_mats": np.tile(np.eye(3, dtype=np.float32), (batch_size, 7, 1, 1))}
@@ -1133,20 +1297,22 @@ def serve_full_width(rig, config="flagship", n_timed=3):
           f"median {med:.3f} ms" + (f" (with F.interpolate: {INTERP_SERVE_MS} ms)" if config == "flagship" else "")
           + f", {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
     clip = f", offset_clip_fraction {float(aux['offset_clip_fraction']):.4f}" if "offset_clip_fraction" in aux else ""
-    check(("offset_clip_fraction" in aux) == (mode != "gather"), f"{label}: offset_clip_fraction in {sorted(aux)}")
+    check(("offset_clip_fraction" in aux) == (mode in CLAMPED_MODES), f"{label}: offset_clip_fraction in "
+          f"{sorted(aux)}")
     print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches} in "
           f"{1 + n_timed} requests")
     profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0),
                   med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), **GATHER_LABEL})
-    return launches
+    return launches, {"median_ms": med, "peak_gib": peak}
 
 
 def train_full_width(rig, batch, config="flagship", n_timed=5):
     """1 + ``n_timed`` train steps of a ``FULL_WIDTH`` configuration, each
     launching B1/B2/B3 as the table says (B3: the camera warp's, and in
     warped and gather modes one more per encoder layer), then the bitwise
-    repeat of two steps. Returns the launch counts by kernel name and the
-    step profile's device time by kernel label."""
+    repeat of two steps. Returns the launch counts by kernel name, the
+    step profile's device time by kernel label, and the median step and peak
+    memory."""
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
@@ -1158,7 +1324,8 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     wrappers = main_path_launches()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
                             device="cuda", seed=0, **kw)
-    check(model.world_feat.mode == mode, f"attention mode {model.world_feat.mode}, expected {mode}")
+    check(getattr(model.world_feat, "mode", None) == mode, f"{label}: attention mode "
+          f"{getattr(model.world_feat, 'mode', None)}, expected {mode}")
     state = create_train_state(model, lr=LR, total_steps=TOTAL_STEPS)
     batch = batch_to_device(batch, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1185,7 +1352,8 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     print(f"{label}: warm-up {times[0]:.1f} ms, timed steps (ms) {[round(t, 3) for t in timed]}, median {med:.3f} ms"
           + (f" (with F.interpolate: {INTERP_TRAIN_MS} ms)" if config == "flagship" else "")
           + f", {batch_size / (med / 1e3):.3f} frame-sets/s, peak memory {peak:.2f} GiB")
-    check(("offset_clip_fraction" in aux) == (mode != "gather"), f"{label}: offset_clip_fraction in {sorted(aux)}")
+    check(("offset_clip_fraction" in aux) == (mode in CLAMPED_MODES), f"{label}: offset_clip_fraction in "
+          f"{sorted(aux)}")
     print(f"{label}: losses {[round(v, 5) for v in losses]}, last step "
           + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches} in {steps} steps")
     ours = profile_table(label, lambda: train_step(state, batch, gen), med,
@@ -1227,7 +1395,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
               f"order {grads_differ[::-1][:6]}; step {a[3]:.1f} and {b[3]:.1f} ms; warnings {a[4] + b[4]}")
     check(verdict["default algorithms"], f"{label}: two steps with PyTorch's default algorithms are not bitwise "
           "equal")
-    return launches, ours
+    return launches, ours, {"median_ms": med, "peak_gib": peak}
 
 
 # ----------------------------------------------------------------- the CLI and the Trainer
@@ -1249,13 +1417,37 @@ RECIPE_SHADOW_ATTENTION = dict(b=1, l=32, c=4, h=15, w=30, m=8, d=16, p=1, radiu
 GATHER_LABEL = {"index_select (warp gathers)": ("vectorized_gather_kernel", "indexSelect")}
 # the configurations served and trained at full width: model keywords, the attention mode they resolve, and B1/B2/B3
 # launches per request and per train step (B3: the camera warp's, and one per encoder layer in warped and gather modes)
+# (the conv, trans and deform_conv fusions have no attention mode: B3 on the camera warp, and deform_conv's input
+# gradient, all cameras in one call; VGG-11 and remat keep the flagship's fusion)
 FULL_WIDTH = {
     "flagship": (dict(n_points=4), "windowed", (3, 0, 0), (3, 3, 1)),
     "shadow": (dict(n_points=8), "warped", (3, 0, 0), (3, 3, 4)),
     "gather": (dict(attn_mode="gather"), "gather", (0, 0, 0), (0, 0, 4)),
     "aio": (dict(world_feat_arch="aio"), "gather", (0, 0, 0), (0, 0, 4)),
+    "conv": (dict(world_feat_arch="conv"), None, (0, 0, 0), (0, 0, 1)),
+    "trans": (dict(world_feat_arch="trans"), None, (0, 0, 0), (0, 0, 1)),
+    "deform_conv": (dict(world_feat_arch="deform_conv"), None, (0, 0, 0), (0, 0, 2)),
+    "vgg11": (dict(arch="vgg11"), "windowed", (3, 0, 0), (3, 3, 1)),
+    "remat": (dict(remat_backbone=True), "windowed", (3, 0, 0), (3, 3, 1)),
 }
-FULL_WIDTH_LABELS = {"flagship": "", "shadow": " n_points=8", "gather": " gather", "aio": " aio"}
+FULL_WIDTH_LABELS = {"flagship": "", "shadow": " n_points=8", "gather": " gather", "aio": " aio", "conv": " conv",
+                     "trans": " trans", "deform_conv": " deform_conv", "vgg11": " vgg11", "remat": " remat"}
+VARIANTS = ("conv", "trans", "deform_conv", "vgg11", "remat")
+# the attention modes that clamp offsets and report the fraction clamped
+CLAMPED_MODES = ("windowed", "warped")
+# each variant through cli.main: SKILL.md's recipe for 2 epochs with the variant's flag (MODA printed, not gated)
+VARIANT_RECIPE = ["-d", "synthetic", "--epochs", "2", "--synthetic_frames", "12", "--augmentation", "true", "--lr",
+                  "1e-3", "--cls_thres", "0.4", "-j", "4", "--deterministic", "true"]
+VARIANT_FLAGS = {"conv": ["--world_feat", "conv"], "trans": ["--world_feat", "trans"],
+                 "deform_conv": ["--world_feat", "deform_conv"], "vgg11": ["--arch", "vgg11"],
+                 "remat": ["--remat_backbone", "true"]}
+# the variants at a small size, card against CPU in f32 (TF32 off): the forward's bound, of max(1, scale); the
+# all-f32 fusions hold 1e-3, the windowed ones stage the attention value in bf16 on the card (SMALL_MODEL_RTOL)
+SMALL_VARIANT_RTOL = {"conv": 1e-3, "trans": 1e-3, "deform_conv": 1e-3, "vgg11": SMALL_MODEL_RTOL,
+                      "remat": SMALL_MODEL_RTOL}
+# deform_conv at full width: the 7 cameras' 120x360 BEV maps of 128 channels, batch 2; its input gradient is one B3
+# launch over the N*B maps of 9*H*W taps each
+DEFORM_CONV_SHAPE = dict(b=2, n=7, h=120, w=360, c=128)
 # gather attention at full width: the shadow transformer's encoder (7 camera levels of 60x180, every token a query)
 # and the aio encoder's (one level, the 120x360 BEV); B3 takes the value's gradient as B*M*L maps of Q*P samples
 GATHER_ATTENTION = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4)
@@ -1633,6 +1825,27 @@ def checkpoint_phase(probe) -> dict:
     return {"launches": launches, "radius": radius}
 
 
+def variant_cli_phase(probe) -> dict:
+    """(e) each ported variant's flag through ``cli.main``: VARIANT_RECIPE (2
+    epochs of SKILL.md's recipe, ``--deterministic true``) with the flag; the
+    determinism check must pass, each train step and eval batch must launch
+    B1/B2/B3 as FULL_WIDTH says; MODA is printed, not gated. Returns the
+    launches by variant."""
+    launches = {}
+    for config, flags in VARIANT_FLAGS.items():
+        probe.tests = []
+        t0 = time.perf_counter()
+        _, per_eval, per_step = FULL_WIDTH[config][1:]
+        (trainer, log), launches[config] = counted_run(f"cli {config}", probe, lambda: run_cli(VARIANT_RECIPE + flags),
+                                                       per_step=per_step, per_eval=per_eval)
+        check("determinism check passed" in log, f"cli {config}: the determinism check did not pass")
+        modas = [round(t[1], 1) for t in probe.tests]
+        print(f"cli {config} ({' '.join(flags)}): {time.perf_counter() - t0:.1f} s; MODA by epoch {modas[:-1]}, then "
+              f"the reloaded model {modas[-1]} (2 epochs: recorded, not gated); last epoch loss "
+              f"{probe.tests[-2][0]:.4f}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1707,28 +1920,39 @@ def main() -> int:
     b3 = warp_phase(rng, rig, batch)
     shadow = shadow_kernel_phase(rng, rig)
     gather = gather_kernel_phase(rng)
+    deform = deform_conv_phase(rng)
     b5 = lane_phase()
 
     small_model_card_vs_cpu()
-    serve_launches = serve_full_width(rig)
+    variants_card_vs_cpu()
+    serve_launches, serve_stats = serve_full_width(rig)
     torch.cuda.empty_cache()
-    train_launches, step_profile = train_full_width(rig, batch)
+    train_launches, step_profile, train_stats = train_full_width(rig, batch)
     warp_profile(b3, rig, batch, step_profile[warp.KERNEL_NAME])
     torch.cuda.empty_cache()
     # the 8-point shadow configuration at the same width: warped attention, B3 also on each layer's shadow warp
-    shadow_serve_launches = serve_full_width(rig, "shadow")
+    shadow_serve_launches, _ = serve_full_width(rig, "shadow")
     torch.cuda.empty_cache()
-    shadow_train_launches, _ = train_full_width(rig, batch, "shadow")
+    shadow_train_launches, _, _ = train_full_width(rig, batch, "shadow")
     torch.cuda.empty_cache()
     # (h) gather attention and (i) aio at the same width: B3 on the camera warp and each encoder layer's value
-    gather_launches = {"serve": serve_full_width(rig, "gather")}
+    gather_launches = {"serve": serve_full_width(rig, "gather")[0]}
     torch.cuda.empty_cache()
-    gather_launches["train"], _ = train_full_width(rig, batch, "gather")
+    gather_launches["train"] = train_full_width(rig, batch, "gather")[0]
     torch.cuda.empty_cache()
-    aio_launches = {"serve": serve_full_width(rig, "aio", n_timed=1)}
+    aio_launches = {"serve": serve_full_width(rig, "aio", n_timed=1)[0]}
     torch.cuda.empty_cache()
-    aio_launches["train"], _ = train_full_width(rig, batch, "aio", n_timed=3)
+    aio_launches["train"] = train_full_width(rig, batch, "aio", n_timed=3)[0]
     torch.cuda.empty_cache()
+    # the other fusions, VGG-11 and remat at the same width
+    variant_launches, variant_stats = {}, {"flagship": {"request": serve_stats, "step": train_stats}}
+    for config in VARIANTS:
+        serve_l, serve_s = serve_full_width(rig, config, n_timed=2)
+        torch.cuda.empty_cache()
+        train_l, _, train_s = train_full_width(rig, batch, config, n_timed=3)
+        torch.cuda.empty_cache()
+        variant_launches[config] = {"serve": serve_l, "train": train_l}
+        variant_stats[config] = {"request": serve_s, "step": train_s}
 
     probe = EpochProbe().install()
     try:
@@ -1737,14 +1961,20 @@ def main() -> int:
         trainer_launches = convergence_phase(probe)
         wildtrack = wildtrack_cli_phase(probe)
         ckpt = checkpoint_phase(probe)
+        for config, launches in variant_cli_phase(probe).items():
+            variant_launches[config]["cli"] = launches
     finally:
         probe.uninstall()
+    print("full-width medians and peaks (bf16, batch 2; " + torch.cuda.get_device_name(0) + "): " + "; ".join(
+        f"{config}: request {st['request']['median_ms']:.3f} ms ({st['request']['peak_gib']:.2f} GiB), step "
+        f"{st['step']['median_ms']:.3f} ms ({st['step']['peak_gib']:.2f} GiB)" for config, st in variant_stats.items()))
     cli_launches = {k: recipe_launches[k] + wildtrack["launches"][k] for k in recipe_launches}
     shadow_by_path = {name: {"serve": shadow_serve_launches[name], "train": shadow_train_launches[name],
                              "cli": shadow_recipe_launches[name]} for name in shadow_serve_launches}
     print(f"shadow path launches by kernel and path: {shadow_by_path}")
     for name, by_path in shadow_by_path.items():
         check(sum(by_path.values()) > 0, f"shadow path: {name} launched no time")
+    print(f"variant launches by path: {variant_launches}")
 
     records = [
         (msda_windowed.KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel.py:95", b1, b1_errs + shadow["b1"]["errs"],
@@ -1763,8 +1993,13 @@ def main() -> int:
         by_path["gather"] = gather_launches["serve"][name] + gather_launches["train"][name]
         by_path["aio"] = aio_launches["serve"][name] + aio_launches["train"][name]
         by_path["checkpoint"] = sum(run[name] for run in ckpt["launches"].values())
+        for config, runs in variant_launches.items():
+            by_path[config] = sum(run[name] for run in runs.values())
     check(records[2][4]["gather"] > 0 and records[2][4]["aio"] > 0, "gather and aio: B3 launched no time")
     check(records[0][4]["checkpoint"] > 0, "checkpoint: B1 launched no time")
+    for config in VARIANTS:
+        for rec, kernel_launches in zip(records, FULL_WIDTH[config][3]):
+            check(kernel_launches == 0 or rec[4][config] > 0, f"{config}: {rec[0]} launched no time")
     rows = [{
         "name": name,
         "route": "cuda",
@@ -1801,6 +2036,10 @@ def main() -> int:
                                                               "device_ms", "segments")})
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], *gather["b3"]["errs"])
     rows[2]["aio_gather"] = gather["b3"]["aio"]
+    # deform_conv: B3 at the coordinates of its input gradient (f32, C=128, 14 maps of 9*120*360 taps)
+    rows[2].update({f"{k}_deform_conv": deform[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                                             "device_ms", "segments", "module_ms")})
+    rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], deform["err"])
     rows[2]["gather_layer_ms"] = gather["times"]
     rows[2]["gather_attention_max_abs_err"] = max(gather["errs"])
     rows[0]["checkpoint_radius"] = ckpt["radius"]

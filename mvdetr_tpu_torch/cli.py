@@ -13,10 +13,11 @@ The parser is the JAX package's, flag for flag and default for default,
 plus ``--device`` (default ``cuda``; the run raises without a card unless
 ``--device cpu``). A flag whose feature the port does not have yet raises
 before any work: ``--view_shards``/``--bev_shards`` > 1 and the multi-host
-flags (ROADMAP item A.9), ``--visualize`` (A.5), ``--arch vgg11``,
-``--world_feat conv|trans|deform_conv`` and ``--remat_backbone`` (A.7).
-``--n_points 8`` (the shadow reference maps, ``warped`` attention),
-``--attn_mode windowed|warped|gather`` and ``--world_feat aio`` run.
+flags (ROADMAP item A.9) and ``--visualize`` (A.5). Every fusion variant
+(``--world_feat``), both backbones (``--arch``, with ``--backbone_ckpt``
+read as torchvision's weights of that backbone), ``--remat_backbone``,
+``--n_points 8`` (the shadow reference maps, ``warped`` attention) and
+``--attn_mode windowed|warped|gather`` run.
 ``--reID`` and ``--id_ratio`` are accepted and, as in the JAX package, only
 name the logdir.
 
@@ -33,6 +34,7 @@ Usage::
     python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --epochs 1 --synthetic_frames 4
     python -m mvdetr_tpu_torch.cli -d synthetic --n_points 8 --epochs 10 --synthetic_frames 12 --lr 1e-3 --cls_thres 0.4
     python -m mvdetr_tpu_torch.cli -d synthetic --attn_mode gather --epochs 10 --synthetic_frames 12 --lr 1e-3
+    python -m mvdetr_tpu_torch.cli -d synthetic --world_feat deform_conv --arch vgg11 --epochs 2 --synthetic_frames 12
     python -m mvdetr_tpu_torch.cli -d synthetic --synthetic_frames 12 --load_torch_ckpt MultiviewDetector.pth
 """
 
@@ -113,9 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--nms_top_k", type=int, default=512,
                         help="eval candidate cap before NMS (the trainer warns when it saturates)")
     parser.add_argument("--remat_backbone", type=str2bool, default=False,
-                        help="rematerialize backbone blocks on backward (not ported)")
+                        help="rematerialize backbone blocks on backward (memory for compute)")
     parser.add_argument("--backbone_ckpt", type=str, default=None,
-                        help="torchvision resnet18 .pth/.npz for ImageNet init")
+                        help="torchvision resnet18 (or, with --arch vgg11, vgg11) .pth/.npz for ImageNet init")
     parser.add_argument("--load_torch_ckpt", type=str, default=None,
                         help="reference MultiviewDetector.pth, eval only")
     parser.add_argument("--warp_convention", type=str, default=None, choices=["center", "kornia"],
@@ -143,9 +145,6 @@ def check_ported(args) -> None:
             bool(args.num_processes and args.num_processes > 1) or args.coordinator_address is not None
             or args.process_id is not None,
         "--visualize (ROADMAP item A.5)": args.visualize,
-        "--arch vgg11 (ROADMAP item A.7)": args.arch != "resnet18",
-        f"--world_feat {args.world_feat} (ROADMAP item A.7)": args.world_feat not in ("deform_trans", "aio"),
-        "--remat_backbone (ROADMAP item A.7)": args.remat_backbone,
     }
     missing = [flag for flag, used in unported.items() if used]
     if missing:
@@ -239,7 +238,7 @@ def main(args=None):
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         attn_mode=args.attn_mode, attn_radius=attn_radius, n_points=args.n_points,
         warp_convention=args.warp_convention or ("kornia" if args.load_torch_ckpt else "center"),
-        device=device, seed=args.seed,
+        remat_backbone=args.remat_backbone, device=device, seed=args.seed,
     )
 
     backbone_vars = None
@@ -306,9 +305,7 @@ def _load_reference_checkpoint(args, model) -> None:
     """``--load_torch_ckpt``: check the checkpoint's configuration against
     the flags (a mismatch exits with the flags to pass), then load it into
     ``model`` strictly (`mvdetr_tpu/cli.py:299-326`)."""
-    from mvdetr_tpu_torch.interop import (
-        check_ported_config, detect_reference_config, read_torch_checkpoint,
-    )
+    from mvdetr_tpu_torch.interop import detect_reference_config, read_torch_checkpoint
     from mvdetr_tpu_torch.train.state import load_state_dict_checked
 
     print(f"Loading reference torch checkpoint {args.load_torch_ckpt} (eval only)")
@@ -332,7 +329,6 @@ def _load_reference_checkpoint(args, model) -> None:
             f"checkpoint config mismatch {mismatched} (flag value, checkpoint value); "
             f"rerun with: {hint}"
         )
-    check_ported_config(ckpt_cfg)
     load_state_dict_checked(model, sd, what="reference checkpoint")
 
 

@@ -2,17 +2,20 @@
 and the reference ``MultiviewDetector.pth`` -> the port's model.
 
 The port names its parameters like the reference ``MultiviewDetector.pth``
-that ``mvdetr_tpu/interop.py:134-259`` reads (``base.{0,1,4..7}.*``,
-``bottleneck.0``, ``<head>.0``, ``world_feat.downsample.0``,
-``world_feat.lvl_embedding``, ``world_feat.encoder.layers.{i}.*``,
-``world_feat.merge_linear.0``, ``world_feat.upsample.1``), so the published
-checkpoint loads with ``load_state_dict`` as it is, and
+that ``mvdetr_tpu/interop.py:134-259`` reads (``base.{0,1,4..7}.*`` of the
+ResNet or ``base.{0,3,...,18}`` of VGG-11, ``bottleneck.0``, ``<head>.0``,
+and each fusion's ``world_feat.*``), so the published checkpoint loads with
+``load_state_dict`` as it is, and
 ``mvdetr_tpu.interop.convert_reference_state_dict(port.state_dict())`` gives
-back the JAX variables this function started from.
+back the JAX variables this function started from, for every backbone and
+fusion variant.
 
 Conversions: conv kernels HWIO -> OIHW, Dense ``[in, out]`` -> Linear
 ``[out, in]``, BatchNorm/LayerNorm ``scale`` -> ``weight`` with the running
-``mean``/``var`` as ``running_mean``/``running_var``.
+``mean``/``var`` as ``running_mean``/``running_var``, Flax's per-head
+query/key/value/out kernels -> ``in_proj_weight`` ``[3C, C]`` and
+``out_proj``, and ``deform_conv``'s 18 offset channels from the JAX op's
+(dx, dy) per tap back to torchvision's (dy, dx).
 
 The reference checkpoint needs no conversion: :func:`load_torch_checkpoint`
 reads it, reads its configuration from its keys
@@ -30,19 +33,18 @@ import numpy as np
 import torch
 
 from mvdetr_tpu_torch.device import resolve_device
+from mvdetr_tpu_torch.models.vgg import TORCHVISION_CONV_IDX
 
 _HEADS = ("img_heatmap", "img_offset", "img_wh", "world_heatmap", "world_offset")
-_DEFORM_TRANS_KEYS = {"downsample", "lvl_embedding", "encoder", "merge", "up"}
-_AIO_KEYS = {"merge", "encoder", "output"}
-# the (arch, world_feat_arch) pairs the port builds
-_PORTED = {"arch": ("resnet18",), "world_feat_arch": ("deform_trans", "aio")}
+# deform_conv's offset channels: (dy, dx) per tap <-> (dx, dy) per tap (`mvdetr_tpu/interop.py:309-325`)
+_OFFSET_SWAP = np.arange(18).reshape(9, 2)[:, ::-1].reshape(-1)
 
 
 def from_jax_variables(variables: dict, device="cuda") -> "OrderedDict[str, torch.Tensor]":
-    """``variables``: the JAX ``{"params", "batch_stats"}`` tree of a
-    ``deform_trans`` or ``aio`` ResNet-18 ``MVDeTr``, as nested dicts of arrays (numpy,
-    or anything ``np.asarray`` reads). Returns the port's state_dict with
-    tensors on ``device`` (default the card)."""
+    """``variables``: the JAX ``{"params", "batch_stats"}`` tree of an
+    ``MVDeTr`` (either backbone, any fusion variant), as nested dicts of
+    arrays (numpy, or anything ``np.asarray`` reads). Returns the port's
+    state_dict with tensors on ``device`` (default the card)."""
     dev = resolve_device(device)
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: "OrderedDict[str, np.ndarray]" = OrderedDict()
@@ -66,22 +68,27 @@ def from_jax_variables(variables: dict, device="cuda") -> "OrderedDict[str, torc
         sd[f"{key}.running_var"] = np.asarray(snode["var"])
         sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
 
-    base, sbase = params["base"], stats["base"]
-    conv("base.0", base["conv1"])
-    batchnorm("base.1", base["bn1"], sbase["bn1"])
-    for stage in range(1, 5):
-        block = 0
-        while f"layer{stage}_{block}" in base:
-            name, pre = f"layer{stage}_{block}", f"base.{3 + stage}.{block}"
-            blk, sblk = base[name], sbase[name]
-            conv(f"{pre}.conv1", blk["conv1"])
-            batchnorm(f"{pre}.bn1", blk["bn1"], sblk["bn1"])
-            conv(f"{pre}.conv2", blk["conv2"])
-            batchnorm(f"{pre}.bn2", blk["bn2"], sblk["bn2"])
-            if "downsample_conv" in blk:
-                conv(f"{pre}.downsample.0", blk["downsample_conv"])
-                batchnorm(f"{pre}.downsample.1", blk["downsample_bn"], sblk["downsample_bn"])
-            block += 1
+    base = params["base"]
+    if "conv0" in base:  # VGG-11: no BatchNorm
+        for i, t in enumerate(TORCHVISION_CONV_IDX):
+            conv(f"base.{t}", base[f"conv{i}"])
+    else:
+        sbase = stats["base"]
+        conv("base.0", base["conv1"])
+        batchnorm("base.1", base["bn1"], sbase["bn1"])
+        for stage in range(1, 5):
+            block = 0
+            while f"layer{stage}_{block}" in base:
+                name, pre = f"layer{stage}_{block}", f"base.{3 + stage}.{block}"
+                blk, sblk = base[name], sbase[name]
+                conv(f"{pre}.conv1", blk["conv1"])
+                batchnorm(f"{pre}.bn1", blk["bn1"], sblk["bn1"])
+                conv(f"{pre}.conv2", blk["conv2"])
+                batchnorm(f"{pre}.bn2", blk["bn2"], sblk["bn2"])
+                if "downsample_conv" in blk:
+                    conv(f"{pre}.downsample.0", blk["downsample_conv"])
+                    batchnorm(f"{pre}.downsample.1", blk["downsample_bn"], sblk["downsample_bn"])
+                block += 1
 
     if "bottleneck" in params:
         conv("bottleneck.0", params["bottleneck"])
@@ -93,34 +100,73 @@ def from_jax_variables(variables: dict, device="cuda") -> "OrderedDict[str, torc
         else:
             conv(f"{head}.0", node["proj"])
 
-    def encoder(node):
+    def layers(node):
         i = 0
         while f"layer{i}" in node:
-            layer, pre = node[f"layer{i}"], f"world_feat.encoder.layers.{i}"
-            for proj in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
-                dense(f"{pre}.self_attn.{proj}", layer["self_attn"][proj])
-            norm(f"{pre}.norm1", layer["norm1"])
-            dense(f"{pre}.linear1", layer["linear1"])
-            dense(f"{pre}.linear2", layer["linear2"])
-            norm(f"{pre}.norm2", layer["norm2"])
+            yield node[f"layer{i}"], f"world_feat.encoder.layers.{i}"
             i += 1
 
+    def deform_encoder(node):
+        for layer, pre in layers(node):
+            for proj in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+                dense(f"{pre}.self_attn.{proj}", layer["self_attn"][proj])
+            ffn(layer, pre)
+
+    def dense_encoder(node):  # Flax MultiHeadDotProductAttention -> torch nn.MultiheadAttention
+        for layer, pre in layers(node):
+            attn = layer["self_attn"]
+            kernels = [np.asarray(attn[part]["kernel"]) for part in ("query", "key", "value")]  # [C, H, Dh]
+            sd[f"{pre}.self_attn.in_proj_weight"] = np.concatenate([k.reshape(k.shape[0], -1).T for k in kernels])
+            sd[f"{pre}.self_attn.in_proj_bias"] = np.concatenate(
+                [np.asarray(attn[part]["bias"]).reshape(-1) for part in ("query", "key", "value")])
+            out = np.asarray(attn["out"]["kernel"])  # [H, Dh, C]
+            sd[f"{pre}.self_attn.out_proj.weight"] = out.reshape(-1, out.shape[-1]).T
+            sd[f"{pre}.self_attn.out_proj.bias"] = np.asarray(attn["out"]["bias"])
+            ffn(layer, pre)
+
+    def ffn(layer, pre):
+        norm(f"{pre}.norm1", layer["norm1"])
+        dense(f"{pre}.linear1", layer["linear1"])
+        dense(f"{pre}.linear2", layer["linear2"])
+        norm(f"{pre}.norm2", layer["norm2"])
+
+    def dilated_stack(wf):
+        for i, t in enumerate((0, 2, 4)):
+            conv(f"world_feat.world_feat.{t}", wf[f"feat{i}"])
+
     wf = params["world_feat"]
-    if set(wf) == _DEFORM_TRANS_KEYS:
+    if "lvl_embedding" in wf:  # deform_trans
         conv("world_feat.downsample.0", wf["downsample"])
         sd["world_feat.lvl_embedding"] = np.asarray(wf["lvl_embedding"])
-        encoder(wf["encoder"])
+        deform_encoder(wf["encoder"])
         conv("world_feat.merge_linear.0", wf["merge"])
         conv("world_feat.upsample.1", wf["up"])
-    elif set(wf) == _AIO_KEYS:
+    elif "output" in wf:  # aio
         conv("world_feat.merge.0", wf["merge"])
-        encoder(wf["encoder"])
+        deform_encoder(wf["encoder"])
         conv("world_feat.output.0", wf["output"])
+    elif "down0" in wf:  # trans
+        conv("world_feat.downsample.0", wf["down0"])
+        conv("world_feat.downsample.2", wf["down1"])
+        dense_encoder(wf["encoder"])
+        conv("world_feat.upsample.1", wf["up0"])
+        conv("world_feat.upsample.4", wf["up1"])
+    elif "deform_pos0" in wf:  # deform_conv
+        cam = 0
+        while f"deform_pos{cam}" in wf:
+            pos = wf[f"deform_pos{cam}"]
+            conv(f"world_feat.deform_pos.{cam}", {"kernel": np.asarray(pos["kernel"])[..., _OFFSET_SWAP],
+                                                  "bias": np.asarray(pos["bias"])[_OFFSET_SWAP]})
+            conv(f"world_feat.deform_conv.{cam}", {"kernel": wf[f"deform_weight{cam}"], "bias": wf[f"deform_bias{cam}"]})
+            cam += 1
+        conv("world_feat.merge_linear.0", wf["merge"])
+        dilated_stack(wf)
+    elif "out" in wf:  # conv
+        conv("world_feat.downsample.0", wf["downsample"])
+        dilated_stack(wf)
+        conv("world_feat.upsample.1", wf["out"])
     else:
-        raise NotImplementedError(
-            f"world_feat parameters {sorted(wf)} are neither the shadow transformer's nor aio's; the other "
-            "variants wait for ROADMAP item A.7"
-        )
+        raise ValueError(f"world_feat parameters {sorted(wf)} are none of the five fusion variants'")
     return OrderedDict((k, torch.from_numpy(np.array(v)).to(dev)) for k, v in sd.items())
 
 
@@ -200,14 +246,6 @@ def read_torch_checkpoint(path: str) -> dict:
     return _strip_module(sd)
 
 
-def check_ported_config(cfg: dict) -> None:
-    """Raise unless the port builds a checkpoint of configuration ``cfg``."""
-    for key, ported in _PORTED.items():
-        if cfg[key] not in ported:
-            raise NotImplementedError(f"reference checkpoint with {key} {cfg[key]!r}: waits for ROADMAP item A.7 "
-                                      f"(the other modes and variants); the port has {', '.join(ported)}")
-
-
 def load_torch_checkpoint(path: str, model: torch.nn.Module, with_config: bool = False):
     """Load the reference ``MultiviewDetector.pth`` at ``path`` into the
     port's ``model``: :func:`read_torch_checkpoint`, then every parameter
@@ -219,6 +257,5 @@ def load_torch_checkpoint(path: str, model: torch.nn.Module, with_config: bool =
 
     sd = read_torch_checkpoint(path)
     cfg = detect_reference_config(sd)
-    check_ported_config(cfg)
     load_state_dict_checked(model, sd, what="reference checkpoint")
     return (model, cfg) if with_config else model

@@ -1,4 +1,4 @@
-"""Training losses, port of ``mvdetr_tpu/losses.py:25-82``.
+"""Training losses, port of ``mvdetr_tpu/losses.py``.
 
 NHWC predictions (raw logits) against fixed-size, top-K padded targets:
 
@@ -7,12 +7,17 @@ NHWC predictions (raw logits) against fixed-size, top-K padded targets:
   is divided by the positive count.
 - :func:`reg_l1_loss`: masked L1 at the ground-truth cells, divided by
   ``sum(mask) + 1e-4``.
-- :func:`gaussian_mse_loss`: the plain MSE of ``--use_mse``.
+- :func:`gaussian_mse_loss`: the plain MSE of ``--use_mse``;
+- :func:`reg_ce_loss`: masked cross-entropy at the ground-truth cells (the
+  reID head's loss, unused at the default ``id_ratio=0``);
+- :func:`gaussian_smoothed_mse_loss`: MVDet's GaussianMSE (the target
+  max-pooled to the output's size, blurred with a peak-normalised Gaussian).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def clamped_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -57,3 +62,35 @@ def gaussian_mse_loss(output: torch.Tensor, target: torch.Tensor) -> torch.Tenso
     (`trainer.py:64-66` of the reference feeds the head output to MSE without
     a sigmoid)."""
     return torch.mean((output - target) ** 2)
+
+
+def reg_ce_loss(output: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``output [B, H, W, C]`` class logits, ``mask [B, K]``, ``idx [B, K]``,
+    ``target [B, K]`` int class ids -> scalar: ``-sum(log_softmax(pred)[target]
+    * mask) / (sum(mask) + 1e-4)`` (`mvdetr_tpu/losses.py:85-97`)."""
+    pred = gather_at_indices(output, idx)
+    logp = torch.log_softmax(pred, dim=-1)
+    picked = torch.take_along_dim(logp, target.long()[..., None], dim=-1)[..., 0]
+    m = mask.to(pred.dtype)
+    return -(picked * m).sum() / (m.sum() + 1e-4)
+
+
+def gaussian_smoothed_mse_loss(output: torch.Tensor, target: torch.Tensor, kernel_size: int = 10) -> torch.Tensor:
+    """``output [B, Ho, Wo, 1]``, ``target [B, Ht, Wt, 1]`` -> scalar
+    (`mvdetr_tpu/losses.py:100-123`): the target max-pooled by the integer
+    size ratio (VALID) when the sizes differ, blurred with a
+    ``(2r+1) x (2r+1)`` Gaussian (sigma ``kernel_size / 4``, ``r = int(2 *
+    sigma)``, peak 1) with zero ``SAME`` padding, then the MSE against the
+    raw output."""
+    ho, wo = output.shape[1:3]
+    ht, wt = target.shape[1:3]
+    t = target.permute(0, 3, 1, 2)
+    if (ht, wt) != (ho, wo):
+        t = F.max_pool2d(t, (ht // ho, wt // wo))
+    sigma = kernel_size / 4.0
+    radius = int(2 * sigma)
+    ax = torch.arange(-radius, radius + 1, dtype=torch.float32, device=target.device)
+    g1 = torch.exp(-(ax**2) / (2 * sigma**2))
+    g2 = torch.outer(g1, g1)
+    blurred = F.conv2d(t, (g2 / g2.max()).to(t.dtype)[None, None], padding=radius)
+    return torch.mean((output - blurred.permute(0, 2, 3, 1)) ** 2)

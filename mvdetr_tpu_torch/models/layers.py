@@ -15,6 +15,7 @@ so the state_dict reads like the reference checkpoint's.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -33,6 +34,8 @@ def _init_weight(t: torch.Tensor, init: str, generator) -> None:
     with torch.no_grad():
         if init == "lecun":
             lecun_normal_(t, generator)
+        elif init == "he":  # Flax's he_normal: the truncated normal of lecun_normal at twice the variance
+            lecun_normal_(t, generator).mul_(math.sqrt(2.0))
         elif init == "xavier":
             nn.init.xavier_uniform_(t, generator=generator)
         elif init == "zeros":
@@ -41,14 +44,43 @@ def _init_weight(t: torch.Tensor, init: str, generator) -> None:
             raise ValueError(f"unknown init {init!r}")
 
 
+class _DeterministicBackwardConv(torch.autograd.Function):
+    """``F.conv2d`` whose backward is the same ``convolution_backward`` that
+    autograd calls, with cuDNN restricted to deterministic algorithms."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, bias is not None)
+        return F.conv2d(x, weight, bias, stride, padding, dilation)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, has_bias = ctx.conf
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, weight, [weight.shape[0]] if has_bias else None, [stride] * 2, [padding] * 2, [dilation] * 2,
+                False, [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1], has_bias and ctx.needs_input_grad[2]])
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        return gx, gw, gb, None, None, None
+
+
 class Conv2d(nn.Module):
-    """``nn.Conv`` of Flax on NCHW tensors (any memory format)."""
+    """``nn.Conv`` of Flax on NCHW tensors (any memory format). With
+    ``deterministic_backward`` the backward asks cuDNN for deterministic
+    algorithms only (where its default one for the layer's shapes is not)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0,
                  dilation: int = 1, bias: bool = True, dtype: torch.dtype = torch.float32,
-                 init: str = "lecun", bias_value: float = 0.0, generator: torch.Generator | None = None):
+                 init: str = "lecun", bias_value: float = 0.0, deterministic_backward: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.stride, self.padding, self.dilation, self.dtype = stride, padding, dilation, dtype
+        self.deterministic_backward = deterministic_backward
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         _init_weight(self.weight, init, generator)
         self.bias = nn.Parameter(torch.full((cout,), float(bias_value))) if bias else None
@@ -56,7 +88,8 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation)
+        conv = _DeterministicBackwardConv.apply if self.deterministic_backward else F.conv2d
+        return conv(x.to(dt), self.weight.to(dt), bias, self.stride, self.padding, self.dilation)
 
 
 class Linear(nn.Module):
@@ -87,7 +120,9 @@ class BatchNorm2d(nn.Module):
     ``0.9 * running + 0.1 * batch`` with the *biased* batch variance
     (`mvdetr_tpu/models/resnet.py:43-44,90`); ``num_batches_tracked`` counts
     the updates. Buffers are named as PyTorch's ``BatchNorm2d`` names them, so
-    reference checkpoints load as they are.
+    reference checkpoints load as they are. While ``freeze_stats`` is set
+    (:func:`frozen_running_stats`), training mode still normalises with the
+    batch statistics but leaves the running ones as they are.
     """
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
@@ -98,21 +133,42 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+        self.freeze_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
             mean = x32.mean(dim=(0, 2, 3))
             var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(0.1 * mean)
-                self.running_var.mul_(0.9).add_(0.1 * var)
-                self.num_batches_tracked.add_(1)
+            if not self.freeze_stats:
+                self._update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(self.dtype)
+
+    @torch.no_grad()
+    def _update_running_stats(self, mean, var):
+        self.running_mean.mul_(0.9).add_(0.1 * mean)
+        self.running_var.mul_(0.9).add_(0.1 * var)
+        self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, no :class:`BatchNorm2d` under ``module`` updates its
+    running statistics (a rematerialised forward recomputes a block whose
+    statistics its first forward already took)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    saved = [m.freeze_stats for m in norms]
+    for m in norms:
+        m.freeze_stats = True
+    try:
+        yield
+    finally:
+        for m, s in zip(norms, saved):
+            m.freeze_stats = s
 
 
 class Dropout(nn.Module):
@@ -121,18 +177,19 @@ class Dropout(nn.Module):
     In training mode (and at a rate above 0) each element, or with
     ``channels=True`` each whole channel of an NCHW map (Flax
     ``broadcast_dims=(1, 2)`` on NHWC, PyTorch's Dropout2d), is kept with
-    probability ``1 - p`` and scaled by ``1 / (1 - p)``. The mask is drawn
+    probability ``1 - p`` and scaled by ``1 / (1 - p)``; ``broadcast_dims``
+    names further axes that share one mask, as Flax's do. The mask is drawn
     from ``self.generator``, which the train step sets
     (:func:`set_dropout_generator`); a generator on the input's device is
     required, so a run is reproducible from its seed. JAX's random bits
     cannot be matched, so the parity tests run at rate 0.
     """
 
-    def __init__(self, p: float, channels: bool = False):
+    def __init__(self, p: float, channels: bool = False, broadcast_dims: tuple = ()):
         super().__init__()
         if not 0.0 <= p <= 1.0:
             raise ValueError(f"dropout rate must be in [0, 1], got {p}")
-        self.p, self.channels = float(p), channels
+        self.p, self.channels, self.broadcast_dims = float(p), channels, tuple(broadcast_dims)
         self.generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -143,7 +200,8 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise ValueError("Dropout in training mode needs a generator: set it with set_dropout_generator "
                              "(train_step does)")
-        shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2) if self.channels else x.shape
+        shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2) if self.channels else tuple(x.shape)
+        shape = tuple(1 if i in self.broadcast_dims else s for i, s in enumerate(shape))
         keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -3,16 +3,18 @@
 Pipeline:
 
 1. uint8 frames are ImageNet-normalised on the device, in the compute dtype;
-2. the dilated ResNet-18 trunk runs over all B*N views (in training its
-   BatchNorms take statistics over the B*N views), then a 1x1 bottleneck and
+2. the trunk runs over all B*N views: the dilated ResNet-18 (output stride
+   8; in training its BatchNorms take statistics over the B*N views, and
+   ``remat_backbone`` rematerialises its blocks) or, with ``arch="vgg11"``,
+   VGG-11's features (stride 16, f32 as in JAX); then a 1x1 bottleneck and
    Dropout2d (rate ``dropout``, 0 by default as in JAX);
 3. per-view heads (center heatmap, sub-cell offset, box size);
 4. the per-view features are warped onto the reduced BEV grid by the
    homography ``proj @ inv(affine) @ diag(img_reduce)`` (`mvdetr.py:170-175`);
 5. the BEV fusion (``world_feat_arch``: the shadow transformer
-   ``deform_trans`` in ``attn_mode`` windowed, warped or gather, or the
-   merge-first ``aio``) fuses the cameras (encoder dropout
-   ``encoder_dropout``, 0.1 as in JAX);
+   ``deform_trans`` in ``attn_mode`` windowed, warped or gather, the
+   merge-first ``aio``, ``conv``, ``trans`` or ``deform_conv``) fuses the
+   cameras (encoder dropout ``encoder_dropout``, 0.1 as in JAX);
 6. BEV heads: occupancy heatmap and offset.
 
 The public layout is the JAX package's: NHWC images ``[B, N, H, W, 3]`` and
@@ -21,7 +23,12 @@ channels-last memory format, which is the same bytes as NHWC.
 
 Compute dtype: parameters stay f32; with ``compute_dtype=torch.bfloat16``
 every layer computes in bf16 as the Flax modules do, and head logits and the
-attention softmax stay f32.
+attention softmax stay f32. The modules that JAX builds without a dtype
+(VGG-11, the ``trans`` encoder, ``deform_conv``) compute in f32, as Flax's
+promotion of a bf16 input against f32 parameters makes them.
+
+With a stride-16 trunk the warp still scales feature pixels by
+``img_reduce``, as the JAX model does (`mvdetr.py:169-173`).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from mvdetr_tpu_torch.device import resolve_device
 from mvdetr_tpu_torch.models.heads import HEATMAP_BIAS_INIT, OutputHead
 from mvdetr_tpu_torch.models.layers import Conv2d, Dropout
 from mvdetr_tpu_torch.models.resnet import resnet_features
+from mvdetr_tpu_torch.models.vgg import vgg11_features
 from mvdetr_tpu_torch.models.world_feat import build_world_feat
 from mvdetr_tpu_torch.ops.warp import invert_3x3, perspective_warp
 
@@ -61,16 +69,15 @@ class MVDeTr(nn.Module):
                  reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                  compute_dtype: Optional[torch.dtype] = None, attn_mode: str = "auto", attn_radius: int = 4,
                  warp_convention: str = "center", dropout: float = 0.0, encoder_dropout: float = 0.1,
-                 generator: Optional[torch.Generator] = None):
+                 remat_backbone: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if arch != "resnet18":
-            raise NotImplementedError(f"backbone {arch!r} waits for ROADMAP item A.7 (the other modes and variants); "
-                                      "the port has resnet18")
+        if arch not in ("resnet18", "vgg11"):
+            raise ValueError(f"unsupported arch: {arch}")
         if warp_convention not in ("center", "kornia"):
             raise ValueError(f"unknown warp_convention: {warp_convention}")
         if proj_mats is None:
             raise ValueError("MVDeTr needs proj_mats [N, 3, 3]")
-        self.num_cam = num_cam
+        self.num_cam, self.arch = num_cam, arch
         self.Rworld_shape = tuple(int(v) for v in Rworld_shape)
         self.img_reduce = img_reduce
         self.compute_dtype = compute_dtype
@@ -78,7 +85,9 @@ class MVDeTr(nn.Module):
         dt = compute_dtype or torch.float32
         g = generator
 
-        self.base = resnet_features(dtype=dt, generator=g)
+        # the JAX VGG trunk takes no remat (`mvdetr.py:147-156`)
+        self.base = (resnet_features(dtype=dt, remat=remat_backbone, generator=g) if arch == "resnet18"
+                     else vgg11_features(generator=g))
         feat_dim = 512
         self.bottleneck = None
         if bottleneck_dim:
@@ -104,7 +113,8 @@ class MVDeTr(nn.Module):
                  world_feat_arch: str = "deform_trans", bottleneck_dim: int = 128, outfeat_dim: int = 0,
                  n_points: int = 4, compute_dtype: Optional[torch.dtype] = None, attn_mode: str = "auto",
                  attn_radius: int = 4, warp_convention: str = "center", dropout: float = 0.0,
-                 encoder_dropout: float = 0.1, device="cuda", seed: int = 0) -> "MVDeTr":
+                 encoder_dropout: float = 0.1, remat_backbone: bool = False, device="cuda",
+                 seed: int = 0) -> "MVDeTr":
         """Build from a :class:`~mvdetr_tpu_torch.geometry.CameraRig`, deriving
         the projection matrices and the reference map (`mvdetr.py:82-95`).
 
@@ -131,7 +141,8 @@ class MVDeTr(nn.Module):
             world_feat_arch=world_feat_arch, bottleneck_dim=bottleneck_dim, outfeat_dim=outfeat_dim,
             reference_points=ref, n_points=n_points, compute_dtype=compute_dtype, attn_mode=attn_mode,
             attn_radius=attn_radius, warp_convention=warp_convention, dropout=dropout,
-            encoder_dropout=encoder_dropout, generator=torch.Generator().manual_seed(seed),
+            encoder_dropout=encoder_dropout, remat_backbone=remat_backbone,
+            generator=torch.Generator().manual_seed(seed),
         )
         return model.to(dev).eval()
 

@@ -1,11 +1,22 @@
-"""BEV multiview fusion, port of ``mvdetr_tpu/models/world_feat/modules.py``.
+"""BEV multiview fusion, port of ``mvdetr_tpu/models/world_feat/modules.py``:
+all five variants, ``[B, N, H, W, C]`` NHWC in, ``([B, H, W, C], clip
+fractions)`` out.
 
-Two variants are ported: the shadow transformer (``DeformTransWorldFeat``),
-in the ``windowed`` mode (the identity reference map of ``n_points=4``), the
-``warped`` mode (a general map, such as the 8-point shadow map) and the
-``gather`` mode (the reference semantics), and the merge-first variant
-(``DeformTransWorldFeatAIO``, ``gather`` mode on one level);
-``build_world_feat`` raises for the other three (ROADMAP item A.7).
+- ``ConvWorldFeat`` (``conv``): a stride-2 downsample, the cameras
+  concatenated with a coordinate map, a dilated 1/2/4 stack, an upsample;
+- ``TransformerWorldFeat`` (``trans``): two stride-2 downsamples, the dense
+  encoder of ``models/transformer.py``, two upsamples;
+- ``DeformTransWorldFeat`` (``deform_trans``), the shadow transformer, in the
+  ``windowed`` mode (the identity reference map of ``n_points=4``), the
+  ``warped`` mode (a general map, such as the 8-point shadow map) and the
+  ``gather`` mode (the reference semantics);
+- ``DeformTransWorldFeatAIO`` (``aio``): the views merged first, a
+  single-level ``gather`` encoder;
+- ``DeformConvWorldFeat`` (``deform_conv``): a deformable convolution per
+  camera (``ops/deform_conv.py``), merged, then the dilated stack.
+
+Parameter names are the reference checkpoint's; only ``deform_trans``
+reports clip fractions.
 """
 
 from __future__ import annotations
@@ -18,7 +29,9 @@ import torch.nn as nn
 
 from mvdetr_tpu_torch.models.deformable import DeformableEncoder
 from mvdetr_tpu_torch.models.layers import Conv2d
-from mvdetr_tpu_torch.models.pos_embed import sine_pos_embedding
+from mvdetr_tpu_torch.models.pos_embed import coord_map, sine_pos_embedding
+from mvdetr_tpu_torch.models.transformer import TransformerEncoder
+from mvdetr_tpu_torch.ops.deform_conv import deform_conv2d_grouped
 
 
 def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -202,14 +215,161 @@ class DeformTransWorldFeatAIO(nn.Module):
         return self.output(y).permute(0, 2, 3, 1), clips
 
 
+def _stride2(hw) -> Tuple[int, int]:
+    """Output size of a 3x3 convolution at stride 2 with padding 1."""
+    return tuple((int(s) - 1) // 2 + 1 for s in hw)
+
+
+def _dilated_stack(cin: int, hidden_dim: int, dtype, generator) -> nn.Sequential:
+    """Three 3x3 convolutions at dilation 1, 2 and 4, each with a ReLU
+    (``world_feat.world_feat.{0,2,4}``, `modules.py:63-68`)."""
+    layers = []
+    for dil in (1, 2, 4):
+        layers += [Conv2d(cin, hidden_dim, 3, padding=dil, dilation=dil, dtype=dtype, generator=generator), nn.ReLU()]
+        cin = hidden_dim
+    return nn.Sequential(*layers)
+
+
+class ConvWorldFeat(nn.Module):
+    """MVDet's fusion (`mvdetr_tpu/models/world_feat/modules.py:41-75`): a
+    3x3 stride-2 downsample with padding (1, 1) per camera, the cameras
+    concatenated camera-major with a [-1, 1] coordinate map, the dilated
+    stack, a bilinear resize to ``world_shape`` and a 3x3 output conv. The
+    JAX module's ``stride`` and ``reduction`` fields, which
+    ``build_world_feat`` leaves at 2 and None, are not ported."""
+
+    def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128, hidden_dim: int = 128,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.world_shape = tuple(int(v) for v in world_shape)
+        self.grid = _stride2(self.world_shape)
+        self.downsample = nn.Sequential(
+            Conv2d(base_dim, hidden_dim, 3, 2, padding=1, dtype=dtype, generator=generator), nn.ReLU())
+        self.world_feat = _dilated_stack(num_cam * hidden_dim + 2, hidden_dim, dtype, generator)
+        self.upsample = nn.Sequential(
+            _Resize(self.grid, self.world_shape),
+            Conv2d(hidden_dim, base_dim, 3, padding=1, dtype=dtype, generator=generator), nn.ReLU())
+        self.register_buffer("cmap", torch.from_numpy(coord_map(self.grid)).permute(2, 0, 1)[None], persistent=False)
+
+    def forward(self, x: torch.Tensor):
+        b, n, h, w, c = x.shape
+        y = self.downsample(x.reshape(b * n, h, w, c).permute(0, 3, 1, 2))  # NCHW
+        hs, ws = y.shape[2:]
+        if (hs, ws) != self.grid:
+            raise ValueError(f"input grid {h}x{w} does not match world_shape {self.world_shape}")
+        y = y.reshape(b, n * self.hidden_dim, hs, ws)  # camera-major channels (`modules.py:59`)
+        y = torch.cat([y, self.cmap.to(y.dtype).expand(b, -1, -1, -1)], 1)
+        y = self.upsample(self.world_feat(y))
+        return y.permute(0, 2, 3, 1), []
+
+
+class TransformerWorldFeat(nn.Module):
+    """The dense-transformer fusion (`modules.py:78-108`): the cameras
+    concatenated camera-major, two 3x3 stride-2 downsamples, the sine
+    position embedding, a 3-layer :class:`TransformerEncoder` over the
+    quarter-size grid (in f32: the JAX encoder has no dtype), a resize to
+    ``ceil(world / 2)``, ``up0``, a resize to ``world_shape``, ``up1``."""
+
+    def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128, hidden_dim: int = 128,
+                 nhead: int = 8, dim_feedforward: int = 512, dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 generator=None):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.world_shape = tuple(int(v) for v in world_shape)
+        self.grid = _stride2(_stride2(self.world_shape))
+        mid = tuple(-(-s // 2) for s in self.world_shape)
+        self.downsample = nn.Sequential(
+            Conv2d(num_cam * base_dim, hidden_dim, 3, 2, padding=1, dtype=dtype, generator=generator), nn.ReLU(),
+            Conv2d(hidden_dim, hidden_dim, 3, 2, padding=1, dtype=dtype, generator=generator), nn.ReLU())
+        self.encoder = TransformerEncoder(3, hidden_dim, nhead, dim_feedforward, dropout, generator)
+        self.upsample = nn.Sequential(
+            _Resize(self.grid, mid), Conv2d(hidden_dim, hidden_dim, 3, padding=1, dtype=dtype, generator=generator),
+            nn.ReLU(),
+            _Resize(mid, self.world_shape),
+            Conv2d(hidden_dim, hidden_dim, 3, padding=1, dtype=dtype, generator=generator), nn.ReLU())
+        hs, ws = self.grid
+        pos = torch.from_numpy(sine_pos_embedding((hs, ws), hidden_dim // 2)).reshape(1, hs * ws, hidden_dim)
+        self.register_buffer("pos", pos, persistent=False)
+
+    def forward(self, x: torch.Tensor):
+        b, n, h, w, c = x.shape
+        y = self.downsample(x.permute(0, 2, 3, 1, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2))
+        hs, ws = y.shape[2:]
+        if (hs, ws) != self.grid:
+            raise ValueError(f"input grid {h}x{w} does not match world_shape {self.world_shape}")
+        tokens = self.encoder(y.permute(0, 2, 3, 1).reshape(b, hs * ws, self.hidden_dim), self.pos.to(y.dtype))
+        y = self.upsample(tokens.reshape(b, hs, ws, self.hidden_dim).permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1), []
+
+
+class DeformConvWorldFeat(nn.Module):
+    """Per-camera deformable convolution, then a merge
+    (`mvdetr_tpu/models/world_feat/modules.py:230-256`): each camera's map
+    plus the sine position embedding, a 1x1 conv to the 18 offsets of a 3x3
+    kernel, :func:`~mvdetr_tpu_torch.ops.deform_conv.deform_conv2d_grouped`
+    (all cameras in one call, so the input's gradient is one B3 launch) and
+    a ReLU; the cameras concatenated camera-major, a 1x1 merge and the
+    dilated stack.
+
+    Like the JAX module (which has no ``dtype`` field, and adds an f32
+    embedding to the maps), everything computes in f32 whatever the model's
+    compute dtype. The offsets' parameters keep the reference's layout,
+    torchvision's ``DeformConv2d`` one of (dy, dx) per tap
+    (``world_feat.deform_pos.{cam}``), and the forward swaps them to the
+    op's (dx, dy); the kernels are ``world_feat.deform_conv.{cam}``
+    (``[Cout, Cin, 3, 3]``, He-normal as in JAX, zero bias)."""
+
+    def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128, hidden_dim: int = 128,
+                 generator=None):
+        super().__init__()
+        self.world_shape = tuple(int(v) for v in world_shape)
+        self.deform_pos = nn.ModuleList(Conv2d(base_dim, 18, 1, generator=generator) for _ in range(num_cam))
+        self.deform_conv = nn.ModuleList(Conv2d(base_dim, base_dim, 3, init="he", generator=generator)
+                                         for _ in range(num_cam))
+        self.merge_linear = nn.Sequential(Conv2d(num_cam * base_dim, hidden_dim, 1, generator=generator), nn.ReLU())
+        self.world_feat = _dilated_stack(hidden_dim, hidden_dim, torch.float32, generator)
+        h, w = self.world_shape
+        self.register_buffer("pos", torch.from_numpy(sine_pos_embedding((h, w), base_dim // 2)), persistent=False)
+
+    def tap_offsets(self, f: torch.Tensor) -> torch.Tensor:
+        """Each camera's offsets ``[N, B, H, W, 9, 2]`` as (dx, dy) per tap,
+        from its map plus the embedding ``f [N, B, H, W, C]``."""
+        n, b, h, w, _ = f.shape
+        return torch.stack([
+            conv(f[cam].permute(0, 3, 1, 2)).permute(0, 2, 3, 1).reshape(b, h, w, 9, 2).flip(-1)  # (dy, dx) -> (dx, dy)
+            for cam, conv in enumerate(self.deform_pos)])
+
+    def forward(self, x: torch.Tensor):
+        b, n, h, w, c = x.shape
+        if (h, w) != self.world_shape:
+            raise ValueError(f"input grid {h}x{w} does not match world_shape {self.world_shape}")
+        f = (x + self.pos).movedim(1, 0)  # [N, B, H, W, C], f32 by promotion as in JAX
+        offsets = self.tap_offsets(f)
+        weight = torch.stack([conv.weight.permute(2, 3, 1, 0) for conv in self.deform_conv])  # [N, 3, 3, C, Cout]
+        bias = torch.stack([conv.bias for conv in self.deform_conv])
+        y = torch.relu(deform_conv2d_grouped(f, offsets, weight, bias))  # [N, B, H, W, Cout]
+        y = y.permute(1, 2, 3, 0, 4).reshape(b, h, w, -1).permute(0, 3, 1, 2)  # camera-major channels
+        y = self.world_feat(self.merge_linear(y))
+        return y.permute(0, 2, 3, 1), []
+
+
 def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
                      reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                      dtype: torch.dtype = torch.float32, attn_mode: str = "auto", attn_radius: int = 4,
                      dropout: float = 0.1, generator=None) -> nn.Module:
-    """Variant dispatch: ``deform_trans`` and ``aio`` (which, as in JAX,
-    takes no reference map, point count, mode or radius). ``dropout`` is the
-    encoder's rate: 0.1 as in the JAX modules (`modules.py:125,201`), which
+    """Variant dispatch (`modules.py:259-284`). Only ``deform_trans`` takes
+    the reference map, point count, mode and radius; ``deform_conv`` takes no
+    dtype (it computes in f32, as in JAX). ``dropout`` is the encoders' rate
+    (``trans``, ``deform_trans``, ``aio``): 0.1 as in the JAX modules, which
     do not expose it."""
+    if arch == "conv":
+        return ConvWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, dtype=dtype, generator=generator)
+    if arch == "trans":
+        return TransformerWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
+                                    dtype=dtype, generator=generator)
+    if arch == "deform_conv":
+        return DeformConvWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, generator=generator)
     if arch == "deform_trans":
         return DeformTransWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
                                     n_points=n_points, reference_points=reference_points, dtype=dtype,
@@ -217,7 +377,4 @@ def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
     if arch == "aio":
         return DeformTransWorldFeatAIO(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
                                        dtype=dtype, generator=generator)
-    if arch in ("conv", "trans", "deform_conv"):
-        raise NotImplementedError(f"world_feat {arch!r} waits for ROADMAP item A.7 (the other modes and variants); "
-                                  "the port has deform_trans and aio")
     raise ValueError(f"unknown world_feat arch: {arch}")

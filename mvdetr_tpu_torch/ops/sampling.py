@@ -1,5 +1,7 @@
 """Bilinear sampling and its adjoint, port of ``mvdetr_tpu/ops/sampling.py``
-(``bilinear_gather``, ``bilinear_patch_sample``, ``bilinear_scatter_matmul``).
+(``bilinear_gather``, ``bilinear_patch_sample``, ``bilinear_scatter_matmul``),
+and :func:`bilinear_corners`, the corner arithmetic that ``bilinear_gather``
+and the deformable convolution's backward share.
 
 Convention: integer pixel centers. Pixel ``i`` of an axis of size ``W`` is
 centered at coordinate ``i``; the support is ``[-0.5, W - 0.5]``. Each of the
@@ -15,27 +17,40 @@ from __future__ import annotations
 import torch
 
 
-def bilinear_gather(flat_value: torch.Tensor, x: torch.Tensor, y: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Sample ``flat_value [..., H*W, C]`` at pixel coords ``x/y [..., Q]``
-    (the same leading axes) -> ``[..., Q, C]``, zero outside the map.
-
-    The JAX function's op order: ``x0 = floor(x)`` and ``wx1 = x - x0`` in the
-    coordinates' dtype, each corner's weight ``where(inb, wy*wx, 0)`` cast to
-    the value dtype, the tap times its weight and the four corners summed in
-    the value dtype, in the order (y0, x0), (y0, x0+1), (y0+1, x0), (y0+1, x0+1).
-    """
-    c = flat_value.shape[-1]
+def bilinear_corners(x: torch.Tensor, y: torch.Tensor, h: int, w: int) -> list:
+    """The four corners of bilinear sampling at pixel coords ``x/y`` on an
+    ``h x w`` map, in JAX's order (y0, x0), (y0, x0+1), (y0+1, x0), (y0+1,
+    x0+1), each as ``(index, inb, wy, wx, sign_y, sign_x)``: the flat index
+    of the corner clamped into the map (int64), whether the corner lies
+    inside it, its two axis weights in the coordinates' dtype (``x0 =
+    floor(x)``, ``wx1 = x - x0``, ``wx0 = 1 - wx1``), and the signs of their
+    slopes in ``y`` and ``x``."""
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     wx1 = x - x0
     wy1 = y - y0
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
-    out = None
-    for yc, xc, wyc, wxc in ((y0, x0, wy0, wx0), (y0, x0 + 1.0, wy0, wx1),
-                             (y0 + 1.0, x0, wy1, wx0), (y0 + 1.0, x0 + 1.0, wy1, wx1)):
+    corners = []
+    for yc, xc, wyc, wxc, sy, sx in ((y0, x0, wy0, wx0, -1.0, -1.0), (y0, x0 + 1.0, wy0, wx1, -1.0, 1.0),
+                                     (y0 + 1.0, x0, wy1, wx0, 1.0, -1.0), (y0 + 1.0, x0 + 1.0, wy1, wx1, 1.0, 1.0)):
         inb = (xc >= 0) & (xc <= w - 1) & (yc >= 0) & (yc <= h - 1)
         idx = torch.clamp(yc, 0, h - 1).to(torch.int64) * w + torch.clamp(xc, 0, w - 1).to(torch.int64)
+        corners.append((idx, inb, wyc, wxc, sy, sx))
+    return corners
+
+
+def bilinear_gather(flat_value: torch.Tensor, x: torch.Tensor, y: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Sample ``flat_value [..., H*W, C]`` at pixel coords ``x/y [..., Q]``
+    (the same leading axes) -> ``[..., Q, C]``, zero outside the map.
+
+    The JAX function's op order (:func:`bilinear_corners`): each corner's
+    weight ``where(inb, wy*wx, 0)`` cast to the value dtype, the tap times
+    its weight and the four corners summed in the value dtype, in order.
+    """
+    c = flat_value.shape[-1]
+    out = None
+    for idx, inb, wyc, wxc, _, _ in bilinear_corners(x, y, h, w):
         tap = torch.gather(flat_value, -2, idx[..., None].expand(*idx.shape, c))
         weight = torch.where(inb, wyc * wxc, 0.0).to(flat_value.dtype)
         contrib = tap * weight[..., None]

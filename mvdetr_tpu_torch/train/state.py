@@ -5,9 +5,10 @@ statistics), the optimizer, the schedule and the step count.
 
 - ``create_train_state(backbone_variables=)``: the ImageNet init of the trunk
   from a torchvision ``resnet18`` state dict (or the ``.npz`` that
-  ``scripts/prepare_backbone.py`` writes, which holds the same keys), mapped
-  onto ``base.*``: the counterpart of ``load_torchvision_state_dict``
-  (`mvdetr_tpu/models/resnet.py:126`).
+  ``scripts/prepare_backbone.py`` writes, which holds the same keys), or a
+  ``vgg11`` one for a VGG-11 model, mapped onto ``base.*``: the counterpart
+  of ``load_torchvision_state_dict`` (`mvdetr_tpu/models/resnet.py:126`) and
+  ``load_torchvision_vgg11_state_dict``.
 - :func:`load_full_variables`: JAX-shaped numpy variables of the whole model
   through :func:`mvdetr_tpu_torch.interop.from_jax_variables`;
 - :func:`load_state_dict_checked`: a state dict under the model's own names
@@ -41,8 +42,9 @@ def create_train_state(model: nn.Module, lr: float = 5e-4, total_steps: int = 10
                        weight_decay: float = 1e-4, backbone_variables: Optional[Mapping] = None) -> TrainState:
     """Wrap ``model`` (already initialised, on its device) with the
     two-group Adam and OneCycle schedule of :mod:`~mvdetr_tpu_torch.train.optim`;
-    ``backbone_variables``, a torchvision resnet18 state dict (tensors or
-    numpy arrays), replaces the trunk's parameters and statistics first."""
+    ``backbone_variables``, a torchvision state dict of the model's backbone
+    (tensors or numpy arrays), replaces the trunk's parameters and statistics
+    first."""
     if backbone_variables is not None:
         load_backbone(model, backbone_variables)
     optimizer, scheduler = build_optimizer(model, lr, total_steps, base_lr_ratio, weight_decay)
@@ -71,9 +73,16 @@ def torchvision_to_base(state_dict: Mapping) -> dict:
 
 
 def load_backbone(model: nn.Module, state_dict: Mapping) -> None:
-    """Load a torchvision resnet18 state dict into ``model.base``: every
-    parameter and running statistic of the trunk, shape-checked."""
-    _load_checked(model, torchvision_to_base(state_dict), prefix="base.", what="backbone")
+    """Load a torchvision state dict into ``model.base``, ``resnet18``'s or,
+    for a VGG-11 model, ``vgg11``'s: every parameter and running statistic
+    of the trunk, shape-checked."""
+    if getattr(model, "arch", "resnet18") == "vgg11":
+        from mvdetr_tpu_torch.models.vgg import load_torchvision_vgg11_state_dict
+
+        loaded = load_torchvision_vgg11_state_dict(state_dict)
+    else:
+        loaded = torchvision_to_base(state_dict)
+    _load_checked(model, loaded, prefix="base.", what="backbone")
 
 
 def load_full_variables(state: TrainState, variables: dict) -> TrainState:

@@ -30,6 +30,7 @@ from mvdetr_tpu_torch.data.prefetch import prefetch_to_device
 from mvdetr_tpu_torch.device import resolve_device
 from mvdetr_tpu_torch.evaluation import clear_metrics
 from mvdetr_tpu_torch.models.layers import set_dropout_generator
+from mvdetr_tpu_torch.models.world_feat.modules import _resize_bilinear
 from mvdetr_tpu_torch.ops import distance_nms, mvdet_decode, top_k
 from mvdetr_tpu_torch.train.optim import schedule_step
 from mvdetr_tpu_torch.utils.profiling import device_trace
@@ -48,10 +49,19 @@ def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = Fa
     """Compose the MVDeTr loss (`trainer.py:52-66` of the reference).
     ``outputs`` as the model returns them (NHWC); the batch's ``world_gt`` and
     ``imgs_gt`` as :func:`mvdetr_tpu_torch.data.build_targets` makes them,
-    stacked. Returns ``(loss, aux)``."""
+    stacked. Returns ``(loss, aux)``.
+
+    The per-view targets lie on the stride-8 grid of the input. A stride-16
+    trunk (VGG-11) gives per-view head maps of half that size, against which
+    the JAX loss fails to broadcast; here they are first resized to the
+    targets' grid (bilinear, as ``jax.image.resize``)."""
     (world_heatmap, world_offset), (imgs_heatmap, imgs_offset, imgs_wh) = outputs
     wgt, igt = batch["world_gt"], batch["imgs_gt"]
     b, n = igt["heatmap"].shape[:2]
+    grid = tuple(igt["heatmap"].shape[2:4])
+    if tuple(imgs_heatmap.shape[1:3]) != grid:
+        imgs_heatmap, imgs_offset, imgs_wh = (_resize_bilinear(x.permute(0, 3, 1, 2), grid).permute(0, 2, 3, 1)
+                                              for x in (imgs_heatmap, imgs_offset, imgs_wh))
 
     def flat(x):  # [B, N, ...] -> [B*N, ...]
         return x.reshape((b * n,) + tuple(x.shape[2:]))

@@ -8,7 +8,8 @@
 - ``--epochs_per_process 1`` then ``--resume_train`` continues at epoch 2 from
   the saved step, appending to the log; ``--resume`` reloads and tests;
 - every flag whose feature is not ported raises before any work, and so does
-  the default device without a card.
+  the default device without a card; the fusion variants, VGG-11 and
+  ``--remat_backbone`` each run a tiny epoch.
 
 Each run restores ``sys.stdout`` after the CLI's tee.
 """
@@ -90,14 +91,31 @@ def test_epochs_per_process_then_resume_train_continues(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--view_shards", "2"], ["--bev_shards", "2"], ["--num_processes", "2"], ["--coordinator_address", "h:1"],
-    ["--world_feat", "trans"], ["--visualize"], ["--arch", "vgg11"], ["--world_feat", "conv"],
-    ["--world_feat", "deform_conv"], ["--remat_backbone", "true"],
+    ["--visualize"],
 ])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         _run(TINY + flags)
     assert list(tmp_path.iterdir()) == []  # no logdir, no build, nothing
+
+
+@pytest.mark.parametrize("flags", [
+    ["--world_feat", "trans"], ["--arch", "vgg11"], ["--world_feat", "conv"], ["--world_feat", "deform_conv"],
+    ["--remat_backbone", "true"],
+], ids=lambda f: "-".join(a.strip("-") for a in f))
+def test_variant_flags_run_an_epoch(flags, tmp_path):
+    """The flags that raised until the fusion variants, VGG-11 and remat were
+    ported: each runs one tiny epoch and its test."""
+    trainer = _run(TINY + flags + ["--epochs", "1", "--logdir", str(tmp_path / "run")])
+    model = trainer.state.model
+    assert trainer.state.step == 2 and model.arch == ("vgg11" if "vgg11" in flags else "resnet18")
+    if "--world_feat" in flags:
+        assert type(model.world_feat).__name__ == {"trans": "TransformerWorldFeat", "conv": "ConvWorldFeat",
+                                                   "deform_conv": "DeformConvWorldFeat"}[flags[1]]
+    assert all(b.remat == ("--remat_backbone" in flags) for b in model.base.modules() if hasattr(b, "remat"))
+    log = (tmp_path / "run" / "log.txt").read_text()
+    assert "Train epoch 1 done" in log and log.count("Test: loss") == 2
 
 
 def test_default_device_raises_without_a_card(tmp_path, monkeypatch):

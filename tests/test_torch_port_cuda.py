@@ -463,3 +463,61 @@ def test_trainer_epoch_and_test_on_card(cuda_device, tmp_path):
         MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, device=cuda_device, seed=5), lr=1e-3, total_steps=4))
     for key, value in state.model.state_dict().items():
         assert torch.equal(restored.model.state_dict()[key], value), key
+
+
+def test_deform_conv_backward_launches_b3_once_on_card(cuda_device):
+    """``deform_conv2d_grouped`` on the card against the CPU in f32 (3
+    cameras' maps, offsets past the border among them): the forward and all
+    four gradients; each backward launches B3 once, for the input's gradient
+    over all 9 taps, and two backwards are bitwise equal."""
+    from mvdetr_tpu_torch.ops.deform_conv import deform_conv2d_grouped
+
+    rng = np.random.default_rng(4)
+    arrays = (rng.standard_normal((3, 2, 12, 20, 16)), rng.normal(0, 3.0, (3, 2, 12, 20, 9, 2)),
+              rng.standard_normal((3, 3, 3, 16, 24)) * 0.2, rng.standard_normal((3, 24)))
+    g = torch.from_numpy(rng.standard_normal((3, 2, 12, 20, 24)).astype(np.float32))
+    results = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        ts = [torch.from_numpy(a.astype(np.float32)).to(dev).requires_grad_() for a in arrays]
+        before = warp_bwd.launches
+        out = deform_conv2d_grouped(*ts)
+        out.backward(g.to(dev))
+        torch.cuda.synchronize()
+        assert warp_bwd.launches == before + (dev == "cuda")
+        results.setdefault(dev, []).append([out.detach().cpu()] + [t.grad.cpu() for t in ts])
+    for a, b in zip(*results["cuda"]):
+        assert torch.equal(a, b)
+    for a, b in zip(results["cpu"][0], results["cuda"][0]):
+        torch.testing.assert_close(b, a, rtol=0, atol=2e-4 * max(1.0, float(a.abs().max())))
+
+
+@pytest.mark.parametrize("config", ["conv", "trans", "deform_conv", "vgg11", "remat"])
+def test_variant_models_launch_their_kernels_on_card(config, cuda_device):
+    """Each ported variant in bf16: a request launches B1/B2/B3 as
+    ``chip_smoke.FULL_WIDTH`` says (3/0/0 with the windowed fusion, none
+    otherwise), a train step too (conv and trans 0/0/1, deform_conv 0/0/2,
+    vgg11 and remat 3/3/1); two steps from the same state and generator
+    repeat bitwise."""
+    from chip_smoke import FULL_WIDTH
+
+    kw, _, per_request, per_step = FULL_WIDTH[config]
+    rig = make_synthetic_rig(**RIG)
+    batch = synthetic_train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=0)
+    runs = []
+    for _ in range(2):
+        model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, compute_dtype=torch.bfloat16, device="cuda",
+                                seed=0, **kw)
+        counts = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        eval_step(model, batch, world_reduce=2, num_candidates=64)
+        after = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        assert tuple(a - b for a, b in zip(after, counts)) == per_request
+        state = create_train_state(model, lr=5e-4, total_steps=10)
+        _, aux = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        final = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        assert tuple(a - b for a, b in zip(final, after)) == per_step
+        assert np.isfinite(float(aux["loss"]))
+        runs.append((float(aux["loss"]), {n: p.detach().clone() for n, p in model.named_parameters()}))
+    assert runs[0][0] == runs[1][0]
+    for n, p in runs[0][1].items():
+        assert torch.equal(p, runs[1][1][n]), n

@@ -208,15 +208,26 @@ def test_whole_forward_matches_jax(setup, dtype):
 
 def test_training_mode_and_other_variants_raise(setup):
     """Training mode draws dropout masks from a generator that the train
-    step sets: called without one, the forward raises. The variants of
-    ROADMAP item A.7 raise at construction."""
+    step sets: called without one, the forward raises. The ``conv`` and
+    ``trans`` fusions, which raised at construction until they were ported,
+    build and run the same frames as JAX's at inference, in f32 (their own
+    tests are in ``test_torch_port_variants.py``)."""
     port = setup["port"]
     try:
         with pytest.raises(ValueError, match="generator"):
             port.train()(torch.from_numpy(setup["imgs"]), torch.from_numpy(setup["aff"]))
     finally:
         port.eval()
-    rig = make_synthetic_rig(**RIG)
-    for kw in (dict(world_feat_arch="conv"), dict(world_feat_arch="trans")):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item A\.7"):
-            MVDeTr.from_rig(rig, world_reduce=WORLD_REDUCE, device="cpu", **kw)
+    for arch in ("conv", "trans"):
+        ours_model = MVDeTr.from_rig(make_synthetic_rig(**RIG), world_reduce=WORLD_REDUCE, world_feat_arch=arch,
+                                     device="cpu", seed=3)
+        jm = JaxMVDeTr.from_rig(setup["jax_rig"], world_reduce=WORLD_REDUCE, img_reduce=IMG_REDUCE,
+                                world_feat_arch=arch)
+        variables = convert_reference_state_dict({k: v.numpy() for k, v in ours_model.state_dict().items()})
+        ref = jax.jit(lambda v, i, a: jm.apply(v, i, a, train=False))(variables, jnp.asarray(setup["imgs"]),
+                                                                        jnp.asarray(setup["aff"]))
+        with torch.no_grad():
+            ours, clips = ours_model(torch.from_numpy(setup["imgs"]), torch.from_numpy(setup["aff"]))
+        assert clips == []
+        for o, r in zip((*ours[0], *ours[1]), jax.tree.leaves(ref)):
+            _close(o, r, F32_TOL)

@@ -10,7 +10,7 @@ from a port model (the port's names are the reference's):
   loaded model and JAX's (``mvdetr_tpu.interop.load_torch_checkpoint``) run
   the same frames within 1e-4 of scale, in gather mode and at the radius
   ``suggest_attn_radius`` picks; a key the model does not use, a missing
-  key and an unported variant raise;
+  key and a checkpoint of another variant raise;
 - ``--load_torch_ckpt`` through ``cli.main --device cpu`` beside JAX's CLI
   on the same checkpoint: the auto-picked radius line, the note on unbounded
   offsets, the ``kornia`` default and the mismatch ``SystemExit`` are JAX's;
@@ -66,7 +66,7 @@ def _save(sd, path, wrap=False, module=False):
 
 
 def _fake_layouts():
-    """Key layouts of the variants the port does not build (shapes only)."""
+    """Key layouts of the other variants (shapes only, a few keys each)."""
     z = np.zeros
     common = {"base.0.weight": z((64, 3, 7, 7)), "bottleneck.0.weight": z((128, 512, 1, 1)),
               "img_heatmap.0.weight": z((1, 128, 1, 1))}
@@ -159,9 +159,10 @@ def test_port_and_jax_loaders_run_the_same_frames(checkpoints, tmp_path, arch):
 
 
 def test_load_torch_checkpoint_is_strict(checkpoints, tmp_path):
-    """An unused key, a missing key, a shape that differs and a variant the
-    port does not build each raise (JAX's converter refuses the unused key
-    too)."""
+    """An unused key, a missing key, a shape that differs and a checkpoint of
+    another variant each raise (JAX's converter refuses the unused key too).
+    Every variant is ported, so a fake layout fails on its keys, not for
+    being a variant the port lacks."""
     sd = dict(checkpoints["deform_trans"])
     model = MVDeTr.from_rig(make_synthetic_rig(**RIG), world_reduce=2, device="cpu")
     extra = _save({**sd, "world_feat.extra.weight": torch.zeros(3)}, tmp_path / "extra.pth", wrap=True)
@@ -177,7 +178,7 @@ def test_load_torch_checkpoint_is_strict(checkpoints, tmp_path):
         interop.load_torch_checkpoint(_save(wrong, tmp_path / "wrong.pth"), model)
     for name, fake in _fake_layouts().items():
         path = _save({k: torch.from_numpy(v) for k, v in fake.items()}, tmp_path / f"{name}.pth")
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item A\.7"):
+        with pytest.raises(ValueError, match="reference checkpoint do not match the model: missing"):
             interop.load_torch_checkpoint(path, model)
 
 
