@@ -25,6 +25,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    5 cameras over 3 levels), and at the flagship shape at R=16 (query side
    timed); two launches must be bitwise equal; each case prints the query
    side's plan;
+3b. B1 and B2 in ``row_halo`` mode (``row_halo_phase``), the BEV-row
+   sharded path's kernels, at the flagship shape: zero halo rows must give
+   the zero-padded kernels' bits; over 2, 4 and 6 shards each shard against
+   the plain ``row_halo`` versions with a bitwise repeat, the composed
+   shards' output, g_offsets and g_weights bitwise the unsharded kernels',
+   g_value bitwise on the rows one shard's queries alone reach and within
+   ROW_HALO_ATOL where two halos add (summed as the halo exchange sums it),
+   one shard of each timed beside its bound; then the counted run,
+   ``compose_bev_shards`` over 2 shards through autograd (B1 and B2 once a
+   shard, in halo mode);
 4. B3, the warp backward, against its plain version at the flagship shape
    (g [14, 43200, 128] bf16 at the coordinates of the bench rig's homographies
    with non-identity augmentation affines; its segment statistics printed),
@@ -104,6 +114,16 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    same width, bf16: B1/B2/B3 per step 0/0/1, 0/0/1, 0/0/2, 3/3/1, 3/3/1,
    per request none or (windowed) 3/0/0; medians and peaks summarised
    after the CLI phases;
+8e. the data-parallel step on a one-rank NCCL group (``nccl_phase``;
+   ``torch.distributed`` over ``tcp://localhost``, the mesh's groups all of
+   this rank): the flagship at full width, state broadcast, 1 + 3 sharded
+   steps (gradient, BatchNorm and loss-normaliser all-reduces and the
+   replication check through NCCL; B1/B2/B3 3/3/1 a step, counted) bitwise
+   equal to as many plain steps, one sharded eval step's detections equal
+   to the plain one's, and ``Trainer`` with the mesh and without it over
+   one epoch and a test of the recipe's scene giving the same loss and
+   MODA; a second GPU, and with it the exchange between ranks, is not
+   there;
 9. B3's device time at the flagship by stage and by device activity, from
    torch.profiler after the serve and train profiles: all but one memset of
    its sort must be kernels named ``warp_bwd``, and B3's share of the step
@@ -138,7 +158,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 11. one JSON line with each kernel's launches (by path: serve, train, cli,
     trainer, experiment, shadow: the n_points-8 serve, train and recipe
     runs, gather and aio: their serve and train runs, checkpoint: the
-    checkpoint evaluations; and each variant's serve, train and cli runs),
+    checkpoint evaluations; each variant's serve, train and cli runs; nccl:
+    the one-rank NCCL steps), B1 and B2's ``row_halo`` launches as rows of
+    their own (``<name>:row_halo``: one shard of 2 at the flagship shape,
+    4 and 6 shards under ``by_shards``, launches from the counted
+    one-process composition, path ``composed_bev_shards``),
     error, times and bound, B1/B2/B3's times at the shadow shapes
     (``*_shadow``), B3's at gather's (``*_gather``, aio's under
     ``aio_gather``) and deform_conv's (``*_deform_conv``), and the gather
@@ -176,6 +200,11 @@ SMALL_MODEL_RTOL = 2e-2  # card stages the attention value in bf16 (2^-9 relativ
 BWD_FLOP_PER_SAMPLE_CHANNEL = 30  # B2: ~3x B1's 10 (three cotangent sums, four value taps)
 BWD_VALUE_FLOP_PER_SAMPLE_CHANNEL = 8  # B2's value side: four taps, one FMA each (the query side the other 22)
 LANE_RTOL = 1e-5  # B5, of max|ref|: 81 f32 sums that differ only by FMA contraction, the shuffle tree, the tf32 split
+# B2's g_value where two BEV shards' halo gradients add (of max(1, max|ref|)): one f32 partial sum split in two, each
+# of ~100 terms of order 0.01 at the flagship shape, so a few f32 ulps of the sum
+ROW_HALO_ATOL = 1e-5
+ROW_HALO_SHARDS = (2, 4, 6)  # BEV shards of the flagship's 60 encoder rows: 30, 15 and 10 rows, each >= R = 4
+ROW_HALO_ATTENTION = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4, r=4)  # the flagship's attention (C = L cameras)
 LR, TOTAL_STEPS = 5e-4, 100
 # medians measured on an H100 80GB HBM3 at 700 W while the BEV upsample was F.interpolate (PERF.md)
 INTERP_SERVE_MS, INTERP_TRAIN_MS = 62.37, 246.25
@@ -386,6 +415,167 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
               f"bound {rec['query_bound_ms']:.4f} ms, {query_bytes / 1e6:.1f} MB), plain {rec['plain_ms']:.3f} ms, "
               f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
     return rec
+
+
+def exchange_sum(g_values, radius):
+    """The value's gradient over the full rows from each BEV shard's
+    ``[B, L, Hb + 2R, ...]`` gradient, summed as the halo exchange's backward
+    sums it (``parallel/collectives.py::halo_exchange``): a shard's own rows,
+    then shard j-1's bottom halo onto its first R rows, then shard j+1's top
+    halo onto its last R rows."""
+    import torch
+
+    n, r = len(g_values), radius
+    rows = g_values[0].shape[2] - 2 * r
+    out = []
+    for j, gv in enumerate(g_values):
+        inner = gv[:, :, r:r + rows].clone()
+        if j > 0:
+            inner[:, :, :r] += g_values[j - 1][:, :, rows + r:]
+        if j < n - 1:
+            inner[:, :, rows - r:] += g_values[j + 1][:, :, :r]
+        out.append(inner)
+    return torch.cat(out, dim=2)
+
+
+def row_halo_phase(rng) -> dict:
+    """B1 and B2 in ``row_halo`` mode at the flagship shape (B=2, L=C=7,
+    60x180, M=8, D=16, P=4, R=4), random offsets past the clamp:
+
+    - a value with zero halo rows must give the zero-padded kernels' bits
+      (B1's output; B2's g_offsets, g_weights and g_value on the inner rows);
+    - over 2, 4 and 6 BEV shards, each shard's launch against the plain
+      ``row_halo`` version (KERNEL_ATOL, BWD_ATOL) with a bitwise repeat; the
+      shards composed (halos cut from the full map): B1's output and B2's
+      g_offsets and g_weights bitwise equal to the unsharded kernels', B2's
+      g_value, summed as the halo exchange sums it, bitwise equal on the rows
+      that one shard's queries alone reach and within ROW_HALO_ATOL where two
+      shards' halos add; each kernel's time on one shard beside its bound and
+      the plain version's;
+    - the counted run: ``ops/msda_sharded.py::compose_bev_shards`` through
+      autograd over 2 shards, forward and backward, with every count set to 0
+      just before and read just after: B1 and B2 each once per shard, in halo
+      mode, and the result against the unsharded kernels as above.
+    Returns the records of the kernel line."""
+    import torch
+
+    from mvdetr_tpu_torch.ops.msda_sharded import compose_bev_shards
+    from mvdetr_tpu_torch.ops.msda_windowed import (
+        ms_deform_attn_windowed, ms_deform_attn_windowed_bwd, msda_windowed_bwd, msda_windowed_fwd,
+    )
+
+    b, l, h, w, m, d, p, r = (ROW_HALO_ATTENTION[k] for k in "blhwmdpr")
+    v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, r, integer=False)
+    g = torch.from_numpy(rng.standard_normal((b, l, h, w, m * d), dtype=np.float32)).cuda()
+    out_full = msda_windowed_fwd(v, o, wg, r)
+    gv_full, go_full, gw_full = msda_windowed_bwd(v, o, wg, g, r)
+    zero = v.new_zeros((b, l, r, w, m, d))
+    padded = torch.cat([zero, v, zero], dim=2)
+
+    out_zero = msda_windowed_fwd(padded, o, wg, r, row_halo=True)
+    gv_zero, go_zero, gw_zero = msda_windowed_bwd(padded, o, wg, g, r, row_halo=True)
+    torch.cuda.synchronize()
+    check(torch.equal(out_zero, out_full), "row_halo: B1 on zero halo rows differs from the zero-padded kernel")
+    check(torch.equal(go_zero, go_full) and torch.equal(gw_zero, gw_full),
+          "row_halo: B2's query side on zero halo rows differs from the zero-padded kernel")
+    check(torch.equal(gv_zero[:, :, r:r + h], gv_full), "row_halo: B2's g_value on zero halo rows differs on the "
+          "inner rows")
+    print(f"row_halo: zero halo rows at the flagship shape give the zero-padded kernels' bits (B1; B2's g_offsets, "
+          f"g_weights, and g_value on the {h} inner rows)")
+
+    recs = {"fwd": {"errs": [], "by_shards": {}}, "bwd": {"errs": [], "by_shards": {}}}
+    for n in ROW_HALO_SHARDS:
+        rows = h // n
+        outs, grads = [], []
+        for j in range(n):
+            cut = slice(j * rows, (j + 1) * rows)
+            vh = padded[:, :, j * rows:j * rows + rows + 2 * r].contiguous()
+            oj, wj, gj = (t[:, :, cut].contiguous() for t in (o, wg, g))
+            out = msda_windowed_fwd(vh, oj, wj, r, row_halo=True)
+            bwd = msda_windowed_bwd(vh, oj, wj, gj, r, row_halo=True)
+            again, bwd_again = msda_windowed_fwd(vh, oj, wj, r, row_halo=True), msda_windowed_bwd(
+                vh, oj, wj, gj, r, row_halo=True)
+            ref = ms_deform_attn_windowed(vh, oj, wj, r, flatten=False, row_halo=True)
+            ref_bwd = ms_deform_attn_windowed_bwd(vh, oj, wj, gj, r, row_halo=True)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again) and all(torch.equal(x, y) for x, y in zip(bwd, bwd_again)),
+                  f"row_halo n={n} shard {j}: two launches differ")
+            recs["fwd"]["errs"].append(float((out - ref).abs().max()))
+            check(recs["fwd"]["errs"][-1] <= KERNEL_ATOL, f"row_halo n={n} shard {j}: B1 error {recs['fwd']['errs'][-1]}")
+            for what, x, y in zip(("g_value", "g_offsets", "g_weights"), bwd, ref_bwd):
+                err, scale = float((x - y).abs().max()), float(y.abs().max())
+                recs["bwd"]["errs"].append(err)
+                check(err <= BWD_ATOL * max(1.0, scale), f"row_halo n={n} shard {j}: B2 {what} error {err}")
+            outs.append(out)
+            grads.append(bwd)
+            if j == 0:  # one shard timed: every shard has the same shape
+                fwd_bytes = vh.numel() * 2 + (oj.numel() + wj.numel() + out.numel()) * 4
+                bwd_bytes = vh.numel() * 2 + (oj.numel() + wj.numel() + gj.numel() + sum(x.numel() for x in bwd)) * 4
+                shard = {"fwd": bound(fwd_bytes, 10 * out.numel() * l * p),
+                         "bwd": bound(bwd_bytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wj.numel() * d)}
+                shard["fwd"].update(ms=cuda_ms(lambda: msda_windowed_fwd(vh, oj, wj, r, row_halo=True), 20),
+                                    plain_ms=cuda_ms(lambda: ms_deform_attn_windowed(
+                                        vh, oj, wj, r, flatten=False, row_halo=True), 3))
+                shard["bwd"].update(ms=cuda_ms(lambda: msda_windowed_bwd(vh, oj, wj, gj, r, row_halo=True), 10),
+                                    plain_ms=cuda_ms(lambda: ms_deform_attn_windowed_bwd(
+                                        vh, oj, wj, gj, r, row_halo=True), 2))
+        out_sh = torch.cat(outs, dim=2)
+        gv_sh = exchange_sum([x[0] for x in grads], r)
+        go_sh, gw_sh = (torch.cat([x[i] for x in grads], dim=2) for i in (1, 2))
+        inner = torch.from_numpy(reached_by_one_shard(h, n, r)).cuda()
+        gv_err = float((gv_sh - gv_full).abs().max())
+        gv_scale = float(gv_full.abs().max())
+        check(torch.equal(out_sh, out_full), f"row_halo n={n}: the composed B1 output differs from the unsharded one")
+        check(torch.equal(go_sh, go_full) and torch.equal(gw_sh, gw_full),
+              f"row_halo n={n}: the composed g_offsets or g_weights differ from the unsharded ones")
+        check(torch.equal(gv_sh[:, :, inner], gv_full[:, :, inner]), f"row_halo n={n}: g_value differs on rows "
+              "that one shard's queries alone reach")
+        check(gv_err <= ROW_HALO_ATOL * max(1.0, gv_scale), f"row_halo n={n}: g_value error {gv_err}")
+        for key in ("fwd", "bwd"):
+            recs[key]["by_shards"][n] = dict(shard[key], rows=rows)
+        print(f"row_halo n={n} ({rows} rows + 2x{r} halo a shard): B1 and B2 on every shard within "
+              f"{KERNEL_ATOL}/{BWD_ATOL} of their plain versions, bitwise repeats; composed B1 output, g_offsets "
+              f"and g_weights bitwise the unsharded kernels'; g_value bitwise on {int(inner.sum())} of {h} rows, "
+              f"max_abs_err {gv_err:.3e} (max |ref| {gv_scale:.3f}); one shard: B1 {shard['fwd']['ms']:.4f} ms "
+              f"(bound {shard['fwd']['bound_ms']:.4f}, plain {shard['fwd']['plain_ms']:.3f}), B2 "
+              f"{shard['bwd']['ms']:.4f} ms (bound {shard['bwd']['bound_ms']:.4f}, plain "
+              f"{shard['bwd']['plain_ms']:.3f}); {torch.cuda.get_device_name(0)}")
+
+    # the counted run: the one-process composition through autograd, value in f32 (staged in bf16 by the kernels)
+    n = ROW_HALO_SHARDS[0]
+    leaves = [v.float().requires_grad_(), o.clone().requires_grad_(), wg.clone().requires_grad_()]
+    for fn in (msda_windowed_fwd, msda_windowed_bwd):
+        fn.launches = fn.row_halo_launches = 0
+    out = compose_bev_shards(*leaves, n, r)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: (fn.launches, fn.row_halo_launches) for fn in (msda_windowed_fwd, msda_windowed_bwd)}
+    print(f"row_halo counted run (compose_bev_shards over {n} shards, forward and backward): launches (all, in halo "
+          f"mode) {launches}")
+    check(launches == {"msda_windowed_fwd": (n, n), "msda_windowed_bwd": (n, n)},
+          f"row_halo counted run: launches {launches}")
+    check(torch.equal(out, out_full), "row_halo counted run: the output differs from the unsharded kernel's")
+    check(torch.equal(leaves[1].grad, go_full) and torch.equal(leaves[2].grad, gw_full),
+          "row_halo counted run: g_offsets or g_weights differ from the unsharded kernel's")
+    err = float((leaves[0].grad - gv_full).abs().max())
+    check(err <= ROW_HALO_ATOL * max(1.0, float(gv_full.abs().max())), f"row_halo counted run: g_value error {err}")
+    for key, fn in (("fwd", msda_windowed_fwd), ("bwd", msda_windowed_bwd)):
+        recs[key]["launches"] = fn.row_halo_launches
+        recs[key].update(recs[key]["by_shards"][n])
+    recs["unsharded_ms"] = {"fwd": cuda_ms(lambda: msda_windowed_fwd(v, o, wg, r), 20),
+                            "bwd": cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, r), 10)}
+    print(f"row_halo: the unsharded kernels at the same shape in this run: B1 {recs['unsharded_ms']['fwd']:.4f} ms, "
+          f"B2 {recs['unsharded_ms']['bwd']:.4f} ms")
+    return recs
+
+
+def reached_by_one_shard(h, n, r) -> np.ndarray:
+    """The value rows whose taps all come from queries of their own BEV shard
+    (a query at row q taps rows q + floor(oy) and q + floor(oy) + 1, so row y
+    is reached from query rows [y - r - 1, y + r])."""
+    y, rows = np.arange(h), h // n
+    lo, hi = np.clip(y - r - 1, 0, h - 1) // rows, np.clip(y + r, 0, h - 1) // rows
+    return (lo == y // rows) & (hi == y // rows)
 
 
 def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None, scaled=False):
@@ -1398,6 +1588,119 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     return launches, ours, {"median_ms": med, "peak_gib": peak}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def nccl_phase(rig, batch) -> dict:
+    """The data-parallel train step on a one-rank NCCL group: this process
+    joins ``torch.distributed`` alone (``tcp://localhost``), builds a mesh
+    whose data axis is the one-rank world group, and the flagship model at full
+    width with it and without it, from one seed. ``replicate_state``
+    broadcasts the state; 1 + 3 sharded steps (the gradient all-reduce, the
+    BatchNorm statistics' and the loss normalisers' all-reduces, the
+    replication check, all through NCCL) run with every count set to 0
+    just before and read just after (B1/B2/B3 3/3/1 a step), then as many
+    plain steps from the same generator seed; every parameter, BatchNorm
+    statistic and loss must be bitwise equal, and so must one sharded eval
+    step's detections and the plain one's. Then ``Trainer`` with the mesh
+    and without it, one epoch and a test of the CLI recipe's scene each: the
+    same epoch loss and MODA. The group is destroyed before returning the
+    launches and the step times."""
+    import torch
+    import torch.distributed as dist
+
+    from mvdetr_tpu_torch.data import FrameDataset, SyntheticScene
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.parallel import Mesh
+    from mvdetr_tpu_torch.parallel.sharding import make_sharded_eval_step, make_sharded_train_step, replicate_state
+    from mvdetr_tpu_torch.train import Trainer, batch_to_device, create_train_state, eval_step, train_step
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        # make_mesh gives a one-rank axis no group; here the data axis is bound to the one-rank world group so
+        # that every collective of the data-parallel step runs through NCCL
+        world = dist.group.WORLD
+        mesh = Mesh({"data": 1, "view": 1, "bev": 1}, rank=0, coords={"data": 0, "view": 0, "bev": 0},
+                    groups={"data": world}, world_group=world)
+        check(dist.get_backend(mesh.group("data")) == "nccl", f"nccl: backend {dist.get_backend(mesh.group('data'))}")
+
+        def build(m):
+            model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
+                                    device="cuda", seed=0, mesh=m)
+            return create_train_state(model, lr=LR, total_steps=TOTAL_STEPS)
+
+        plain, sharded = build(None), build(mesh)
+        replicate_state(sharded, mesh)
+        grad_bytes = 4 * sum(p.numel() for p in sharded.model.parameters() if p.requires_grad)
+        print(f"nccl: reduce_gradients sums {grad_bytes} bytes of f32 gradients a step: at N ranks each receives "
+              f"(N - 1) x {grad_bytes} and holds N x {grad_bytes} bytes (a ring all-reduce: 2 (N - 1) / N x "
+              f"{grad_bytes})")
+        b = batch_to_device(batch, "cuda")
+        step = make_sharded_train_step(mesh)
+        wrappers = main_path_launches()
+        steps = 4
+        for fn in wrappers.values():
+            fn.launches = 0
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        times, losses = {"sharded": [], "plain": []}, {"sharded": [], "plain": []}
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _, aux = step(sharded, b, gen, device="cuda")
+            torch.cuda.synchronize()
+            times["sharded"].append((time.perf_counter() - t0) * 1e3)
+            losses["sharded"].append(float(aux["loss"]))
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        expected = {name: k * steps for name, k in zip(wrappers, FULL_WIDTH["flagship"][3])}
+        print(f"nccl: {steps} sharded train steps on the one-rank group, launches {launches} (expected {expected})")
+        check(launches == expected, f"nccl: launches {launches}, expected {expected}")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            _, aux = train_step(plain, b, gen, device="cuda")
+            torch.cuda.synchronize()
+            times["plain"].append((time.perf_counter() - t0) * 1e3)
+            losses["plain"].append(float(aux["loss"]))
+        ours, ref = sharded.model.state_dict(), plain.model.state_dict()
+        differ = [k for k in ref if not torch.equal(ours[k], ref[k])]
+        med = {k: float(np.median(t[1:])) for k, t in times.items()}
+        print(f"nccl: sharded vs plain after {steps} steps: {len(differ)} of {len(ref)} state entries differ "
+              f"{differ[:4]}; losses {losses['sharded']} vs {losses['plain']}; median step {med['sharded']:.3f} ms "
+              f"sharded, {med['plain']:.3f} ms plain (bf16, batch 2, full width; {torch.cuda.get_device_name(0)})")
+        check(not differ and losses["sharded"] == losses["plain"], "nccl: the sharded step is not bitwise the plain one")
+        serve = {"imgs": b["imgs"], "affine_mats": b["affine_mats"]}
+        eval_sharded = make_sharded_eval_step(mesh)
+        _, xys_s, keep_s = eval_sharded(sharded.model, serve, device="cuda")
+        _, xys_p, keep_p = eval_step(plain.model, serve, device="cuda")
+        check(torch.equal(xys_s, xys_p) and torch.equal(keep_s, keep_p), "nccl: sharded eval detections differ")
+        del plain, sharded
+        torch.cuda.empty_cache()
+
+        # Trainer with the mesh and without it: one epoch and a test of the recipe's scene
+        results = {}
+        for label, m in (("mesh", mesh), ("plain", None)):
+            small = make_synthetic_rig(num_cam=4, img_shape=(180, 320), worldgrid_shape=(120, 240))
+            scene = SyntheticScene(small, num_frame=12, num_person=8, seed=2021)
+            kw = dict(world_reduce=4, img_reduce=12, world_kernel_size=10, img_kernel_size=10, seed=2021)
+            train_set = FrameDataset(scene, train=True, augmentation=True, **kw)
+            test_set = FrameDataset(scene, train=False, **kw)
+            model = MVDeTr.from_rig(small, world_reduce=4, img_reduce=12, device="cuda", seed=2021, mesh=m)
+            state = create_train_state(model, lr=1e-3, total_steps=len(train_set))
+            trainer = Trainer(state, train_set, test_set, cls_thres=0.4, logger=lambda *a: None, num_workers=4,
+                              seed=2021, mesh=m)
+            results[label] = (trainer.train_epoch(1, batch_size=2), trainer.test(batch_size=2))
+        print(f"nccl: Trainer one epoch and test with the mesh {results['mesh']} and without {results['plain']}")
+        check(results["mesh"] == results["plain"], "nccl: the Trainer on the mesh differs from the plain one")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches, "sharded_step_ms": med["sharded"], "plain_step_ms": med["plain"]}
+
+
 # ----------------------------------------------------------------- the CLI and the Trainer
 # the synthetic recipe of the repo's verify notes (SKILL.md, "The surface"), which reaches MODA >= 80 there
 RECIPE = ["-d", "synthetic", "--epochs", "10", "--synthetic_frames", "12", "--augmentation", "true", "--world_feat",
@@ -1914,6 +2217,7 @@ def main() -> int:
         label = f"recipe-{'integer' if integer else 'random'}"
         b1_errs.append(fwd_case(label, **RECIPE_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
         b2_errs.append(bwd_case(label, **RECIPE_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
+    halo = row_halo_phase(rng)
 
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
@@ -1953,6 +2257,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         variant_launches[config] = {"serve": serve_l, "train": train_l}
         variant_stats[config] = {"request": serve_s, "step": train_s}
+    # the data-parallel step on a one-rank NCCL group, bitwise the plain step
+    nccl = nccl_phase(rig, batch)
+    torch.cuda.empty_cache()
 
     probe = EpochProbe().install()
     try:
@@ -1993,6 +2300,7 @@ def main() -> int:
         by_path["gather"] = gather_launches["serve"][name] + gather_launches["train"][name]
         by_path["aio"] = aio_launches["serve"][name] + aio_launches["train"][name]
         by_path["checkpoint"] = sum(run[name] for run in ckpt["launches"].values())
+        by_path["nccl"] = nccl["launches"][name]
         for config, runs in variant_launches.items():
             by_path[config] = sum(run[name] for run in runs.values())
     check(records[2][4]["gather"] > 0 and records[2][4]["aio"] > 0, "gather and aio: B3 launched no time")
@@ -2043,6 +2351,21 @@ def main() -> int:
     rows[2]["gather_layer_ms"] = gather["times"]
     rows[2]["gather_attention_max_abs_err"] = max(gather["errs"])
     rows[0]["checkpoint_radius"] = ckpt["radius"]
+    rows[0]["nccl_step_ms"] = {"sharded": nccl["sharded_step_ms"], "plain": nccl["plain_step_ms"]}
+    # B1 and B2 in row_halo mode: one BEV shard at the flagship shape (2 shards; 4 and 6 under by_shards), launches
+    # from the counted one-process composition over 2 shards (compose_bev_shards: the model's sharded path needs a
+    # process per shard, and the card's machine runs one)
+    for name, replaces, key in ((msda_windowed.KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel.py:95", "fwd"),
+                                (msda_windowed.BWD_KERNEL_NAME, "mvdetr_tpu/ops/pallas/msda_kernel_bwd.py:43", "bwd")):
+        rec = halo[key]
+        rows.append({
+            "name": f"{name}:row_halo", "route": "cuda", "source": f"mvdetr_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": rec["launches"],
+            "launches_by_path": {"composed_bev_shards": rec["launches"]},
+            "max_abs_err": max(rec["errs"]), "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "shards": ROW_HALO_SHARDS[0], "rows": rec["rows"],
+            "by_shards": rec["by_shards"], "unsharded_ms": halo["unsharded_ms"][key],
+        })
     # B5: times at the T=151,200 size; the T=1104 ones and the 1-repetition times beside them
     tile, big = sorted(b5["matmul"]["by_T"])
     rows += [{

@@ -12,8 +12,18 @@ continues the epoch loop; ``--epochs_per_process N`` stops after N epochs.
 The parser is the JAX package's, flag for flag and default for default,
 plus ``--device`` (default ``cuda``; the run raises without a card unless
 ``--device cpu``). A flag whose feature the port does not have yet raises
-before any work: ``--view_shards``/``--bev_shards`` > 1 and the multi-host
-flags (ROADMAP item A.9) and ``--visualize`` (A.5). Every fusion variant
+before any work: ``--view_shards`` > 1 (ROADMAP item A.9b) and
+``--visualize`` (A.5).
+
+Several processes (`mvdetr_tpu/cli.py:141-144,181-226`): ``--num_processes
+N --process_id i --coordinator_address host:port`` joins N processes (gloo
+with ``--device cpu``, NCCL with ``cuda``, one GPU per process; more
+processes on a host than GPUs raise before any work), and the mesh is laid
+out as JAX lays it: ``--bev_shards`` processes along the BEV rows, the rest
+along ``data``, as many as divide the batch. Every process must be part of
+the mesh, else the run raises before any work. The logdir is then
+``..._mh{N}_seed{seed}`` on every process; rank 0 writes ``log.txt``, the
+source snapshot, ``test.txt`` and the checkpoints. Every fusion variant
 (``--world_feat``), both backbones (``--arch``, with ``--backbone_ckpt``
 read as torchvision's weights of that backbone), ``--remat_backbone``,
 ``--n_points 8`` (the shadow reference maps, ``warped`` attention) and
@@ -36,6 +46,12 @@ Usage::
     python -m mvdetr_tpu_torch.cli -d synthetic --attn_mode gather --epochs 10 --synthetic_frames 12 --lr 1e-3
     python -m mvdetr_tpu_torch.cli -d synthetic --world_feat deform_conv --arch vgg11 --epochs 2 --synthetic_frames 12
     python -m mvdetr_tpu_torch.cli -d synthetic --synthetic_frames 12 --load_torch_ckpt MultiviewDetector.pth
+    # two processes on the CPU, the 16 encoder rows of a 128x256 grid over both (leave out --bev_shards for data
+    # parallelism at -b 2)
+    python -m mvdetr_tpu_torch.cli -d synthetic --device cpu -b 2 --synthetic_grid 128 256 --bev_shards 2 \
+        --num_processes 2 --process_id 0 --coordinator_address localhost:29500 &
+    python -m mvdetr_tpu_torch.cli -d synthetic --device cpu -b 2 --synthetic_grid 128 256 --bev_shards 2 \
+        --num_processes 2 --process_id 1 --coordinator_address localhost:29500
 """
 
 from __future__ import annotations
@@ -99,10 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--img_reduce", type=int, default=12)
     parser.add_argument("--img_kernel_size", type=int, default=10)
     parser.add_argument("--view_shards", type=int, default=1, help="devices along the view axis (not ported)")
-    parser.add_argument("--bev_shards", type=int, default=1, help="devices along the BEV-row axis (not ported)")
-    parser.add_argument("--coordinator_address", type=str, default=None, help="multi-host (not ported)")
-    parser.add_argument("--num_processes", type=int, default=None, help="multi-host (not ported)")
-    parser.add_argument("--process_id", type=int, default=None, help="multi-host (not ported)")
+    parser.add_argument("--bev_shards", type=int, default=1, help="processes along the BEV-row axis")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of rank 0's rendezvous, with --num_processes > 1")
+    parser.add_argument("--num_processes", type=int, default=None, help="processes of the run, one device each")
+    parser.add_argument("--process_id", type=int, default=None, help="this process's rank")
     parser.add_argument("--bf16", type=str2bool, default=False, help="bfloat16 compute (params stay f32)")
     parser.add_argument("--attn_mode", type=str, default="auto", choices=["auto", "gather", "windowed", "warped"],
                         help="deformable-attention sampling; auto = windowed for n_points 4, warped for 8; "
@@ -139,16 +156,37 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise for every flag whose feature the port does not have yet."""
     unported = {
-        "--view_shards > 1 (ROADMAP item A.9, multi-GPU)": args.view_shards > 1,
-        "--bev_shards > 1 (ROADMAP item A.9, multi-GPU)": args.bev_shards > 1,
-        "--num_processes, --coordinator_address, --process_id (ROADMAP item A.9, multi-GPU)":
-            bool(args.num_processes and args.num_processes > 1) or args.coordinator_address is not None
-            or args.process_id is not None,
+        "--view_shards > 1 (ROADMAP item A.9b, camera sharding)": args.view_shards > 1,
         "--visualize (ROADMAP item A.5)": args.visualize,
     }
     missing = [flag for flag, used in unported.items() if used]
     if missing:
         raise NotImplementedError(f"mvdetr_tpu_torch.cli: not ported yet: {'; '.join(missing)}")
+
+
+def resolve_mesh(args):
+    """The mesh of JAX's CLI (`mvdetr_tpu/cli.py:211-226`) over this run's
+    processes, or None for one process without sharding: ``--view_shards x
+    --bev_shards`` processes a data row, and as many data rows as the
+    processes allow and the batch divides into. Raises ``ValueError`` unless
+    the mesh spans every process (JAX would leave the others idle)."""
+    import torch.distributed as dist
+
+    from mvdetr_tpu_torch.parallel import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.view_shards <= 1 and args.bev_shards <= 1 and world <= 1:
+        return None
+    per = args.view_shards * args.bev_shards
+    data_size = max(1, min(world // per, args.batch_size))
+    while args.batch_size % data_size:
+        data_size -= 1
+    usable = data_size * per
+    if usable != world:
+        raise ValueError(f"{world} process(es) do not form the mesh data={data_size} x view={args.view_shards} x "
+                         f"bev={args.bev_shards} (batch {args.batch_size}): run {usable} processes "
+                         f"(--num_processes {usable})")
+    return make_mesh(num_view_shards=args.view_shards, num_bev_shards=args.bev_shards) if usable > 1 else None
 
 
 def main(args=None):
@@ -162,12 +200,18 @@ def main(args=None):
     from mvdetr_tpu_torch.device import resolve_device
     from mvdetr_tpu_torch.geometry import make_synthetic_rig
     from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.parallel import initialize_distributed
     from mvdetr_tpu_torch.train import (
         Trainer, create_train_state, restore_checkpoint, restore_weights, save_checkpoint,
     )
     from mvdetr_tpu_torch.utils.logger import Logger
 
+    multihost = bool(args.num_processes and args.num_processes > 1)
     device = resolve_device(args.device)
+    if multihost:
+        device = initialize_distributed(args.coordinator_address, args.num_processes, args.process_id, device)
+    mesh = resolve_mesh(args)
+    rank0 = mesh is None or mesh.rank == 0
     if args.deterministic:  # as the original MVDeTr's --deterministic (`main.py:43-46`)
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -192,31 +236,43 @@ def main(args=None):
                              dropout=args.dropcam, augmentation=args.augmentation, **common)
     test_set = FrameDataset(scene, train=False, **common)
 
-    # logdir convention (`main.py:77-89`)
+    # logdir convention (`main.py:77-89`). Several processes resolve one directory: a tag from the seed replaces
+    # the per-process timestamp, and rank 0 alone writes the tee and the snapshot (`mvdetr_tpu/cli.py:181-205`)
     if args.resume_train is not None:
         logdir = (args.resume_train if os.path.isdir(args.resume_train)
                   else f"logs/{args.dataset}/{args.resume_train}")
-        sys.stdout = Logger(os.path.join(logdir, "log.txt"), append=True)
+        if rank0:
+            sys.stdout = Logger(os.path.join(logdir, "log.txt"), append=True)
     elif args.resume is None:
         if args.logdir is not None:
             logdir = args.logdir
         else:
+            stamp = (f"mh{args.num_processes}_seed{args.seed}" if multihost
+                     else f"{datetime.datetime.today():%Y-%m-%d_%H-%M-%S}")
             logdir = (
                 f"logs/{args.dataset}/{'SS_' if args.semi_supervised else ''}"
                 f"{'aug_' if args.augmentation else ''}{args.world_feat}_lr{args.lr}_baseR{args.base_lr_ratio}_"
                 f"neck{args.bottleneck_dim}_out{args.outfeat_dim}_"
                 f"alpha{args.alpha}_id{args.id_ratio}_drop{args.dropout}_dropcam{args.dropcam}_"
                 f"worldRK{args.world_reduce}_{args.world_kernel_size}_imgRK{args.img_reduce}_{args.img_kernel_size}_"
-                f"{datetime.datetime.today():%Y-%m-%d_%H-%M-%S}"
+                f"{stamp}"
             )
+        # the multi-process tag is the same for the same config and seed: a second such run shares the directory
+        if multihost and args.logdir is None and os.path.isdir(os.path.join(logdir, "checkpoints")):
+            print(f"WARNING: multihost logdir {logdir} already contains checkpoints from a previous run with the "
+                  f"same config+seed; resuming picks the latest step across BOTH runs. Pass --logdir for a fresh "
+                  f"directory.")
         os.makedirs(logdir, exist_ok=True)
-        _snapshot_source(logdir)
-        sys.stdout = Logger(os.path.join(logdir, "log.txt"))
+        if rank0:
+            _snapshot_source(logdir)
+            sys.stdout = Logger(os.path.join(logdir, "log.txt"))
     else:
         logdir = f"logs/{args.dataset}/{args.resume}"
     print(logdir)
     print("Settings:")
     print(vars(args))
+    if mesh is not None:
+        print(f"mesh: {mesh.shape}")
 
     # windowed clamp radius: the flag, else for a reference checkpoint (trained with unbounded offsets) the
     # smallest radius that covers its offsets' biases, else 4 (`mvdetr_tpu/cli.py:228-241`)
@@ -238,7 +294,7 @@ def main(args=None):
         compute_dtype=torch.bfloat16 if args.bf16 else None,
         attn_mode=args.attn_mode, attn_radius=attn_radius, n_points=args.n_points,
         warp_convention=args.warp_convention or ("kornia" if args.load_torch_ckpt else "center"),
-        remat_backbone=args.remat_backbone, device=device, seed=args.seed,
+        remat_backbone=args.remat_backbone, device=device, seed=args.seed, mesh=mesh,
     )
 
     backbone_vars = None
@@ -256,7 +312,8 @@ def main(args=None):
 
     trainer = Trainer(state, train_set, test_set, cls_thres=args.cls_thres, alpha=args.alpha,
                       use_mse=args.use_mse, nms_top_k=args.nms_top_k, num_workers=args.num_workers,
-                      profile_dir=os.path.join(logdir, "trace") if args.profile else None, seed=args.seed)
+                      profile_dir=os.path.join(logdir, "trace") if args.profile else None, seed=args.seed,
+                      mesh=mesh)
     res_fpath = os.path.join(logdir, "test.txt")
     ckpt_dir = os.path.join(logdir, "checkpoints")
 
@@ -284,9 +341,12 @@ def main(args=None):
             history["train_loss"].append(train_loss)
             history["test_loss"].append(test_loss)
             history["moda"].append(moda)
-            save_checkpoint(ckpt_dir, trainer.state)
-            if draw:
-                _draw_curve(os.path.join(logdir, "learning_curve.jpg"), history)
+            if rank0:
+                save_checkpoint(ckpt_dir, trainer.state)
+                if draw:
+                    _draw_curve(os.path.join(logdir, "learning_curve.jpg"), history)
+            if mesh is not None:
+                torch.distributed.barrier()  # the checkpoint is on disk before any rank goes on
             if (args.epochs_per_process and epoch < args.epochs
                     and epoch - start_epoch + 1 >= args.epochs_per_process):
                 print(f"epochs_per_process budget reached at epoch {epoch}; "

@@ -109,6 +109,19 @@
 // and a register cap for 6 blocks per SM were each slower on the card.
 // PERF.md has the measurements.
 //
+// Row halo (the BEV-row-sharded path, mvdetr_tpu_torch/ops/msda_sharded.py,
+// as the TPU kernel's row_halo mode, msda_kernel_bwd.py:236-239): the value
+// holds Hv = H + 2R rows for the H query rows, its first and last R rows real
+// rows of the neighbouring shards. The query side reads value row y + row_org
+// for query row y (row_org = R; 0 without a halo, Hv = H) and tests a tap's
+// row against Hv, as B1 does. The value side tiles all Hv rows and writes
+// g_value over them, halo rows included (the exchange sends their gradient
+// back to the shard they came from): a tile at value rows [y_t, y_t + kTileY)
+// takes the queries with qy in [y_t - row_org - R - 1, y_t - row_org +
+// kTileY - 1 + R], clipped to the H query rows, and a tap of query row qy
+// lands on value row qy + iy + row_org. Order, atomics and conventions are
+// as above.
+//
 // Interface: plain C functions, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes (mvdetr_tpu_torch/ops/msda_windowed.py, whose
@@ -290,8 +303,8 @@ msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, 
                       const float* __restrict__ offsets,        // [B, C, H, W, M, L, P, 2]
                       const float* __restrict__ weights,        // [B, C, H, W, M, L, P]
                       const float* __restrict__ g,              // [B, C, H, W, K]
-                      float* __restrict__ g_off, float* __restrict__ g_w, int C, int L, int H, int W, int M, int D,
-                      int P, int radius, int tile_y, int tile_x, int ntx, int nty) {
+                      float* __restrict__ g_off, float* __restrict__ g_w, int C, int L, int H, int Hv, int row_org,
+                      int W, int M, int D, int P, int radius, int tile_y, int tile_x, int ntx, int nty) {
   __shared__ float4 part[SHFL ? 1 : max_threads<VEC>()];
   // blockIdx.x = ((bc * nty + ty) * ntx + tx) * M + m, bc = b * C + c
   int r = blockIdx.x;
@@ -331,8 +344,8 @@ msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, 
     const int y0 = y + (int)iy;
     const bool xa = (unsigned)x0 < (unsigned)W;
     const bool xb = (unsigned)(x0 + 1) < (unsigned)W;
-    const bool ya = (unsigned)y0 < (unsigned)H;
-    const bool yb = (unsigned)(y0 + 1) < (unsigned)H;
+    const bool ya = (unsigned)(y0 + row_org) < (unsigned)Hv;
+    const bool yb = (unsigned)(y0 + row_org + 1) < (unsigned)Hv;
     const char* p = own + ((int)iy * r2 + (int)ix * k2);
     s[0] = tap_dot<VEC>(gv, ldg_or_zero<VEC>(p, ya && xa));
     s[1] = tap_dot<VEC>(gv, ldg_or_zero<VEC>(p + k2, ya && xb));
@@ -362,10 +375,10 @@ msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, 
   float* go = g_off + 2 * s0;
   float* gw = g_w + s0;
   const bool writer = live && chunk == 0;
-  // the thread's own cell of level l's value plane, its channels of head m
+  // the thread's own cell of level l's value plane (Hv rows, the query's at y + row_org), its channels of head m
   auto own_cell = [&](int l) {
-    return reinterpret_cast<const char*>(value + ((((long long)b * L + l) * H + y) * W + x) * K + (long long)m * D +
-                                         chunk * VEC);
+    return reinterpret_cast<const char*>(value + ((((long long)b * L + l) * Hv + y + row_org) * W + x) * K +
+                                         (long long)m * D + chunk * VEC);
   };
   if constexpr (PT == 4) {
     float4 o01 = make_float4(0.f, 0.f, 0.f, 0.f), o23 = o01, w4 = o01;
@@ -511,9 +524,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, P, 2]
                       const float* __restrict__ weights,  // [B, C, H, W, M, L, P]
                       const float* __restrict__ g,        // [B, C, H, W, K]
-                      float* __restrict__ g_value,        // [B, L, H, W, M, D]
-                      int C, int L, int H, int W, int M, int D, int P, int radius, int nchunk, int ntx, int nty,
-                      int slab_rows, int slab_q, int buf_floats, bool vec_g, bool vec_ow) {
+                      float* __restrict__ g_value,        // [B, L, Hv, W, M, D]
+                      int C, int L, int H, int Hv, int row_org, int W, int M, int D, int P, int radius, int nchunk,
+                      int ntx, int nty, int slab_rows, int slab_q, int buf_floats, bool vec_g, bool vec_ow) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;
   // this warp's row records: [32 samples][2 tap rows]
@@ -535,12 +548,13 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
   t.dn = min(kChunk, D - t.d0);
   t.y_t = (tile / ntx) * kTileY;
   t.x_t = (tile % ntx) * kTileX;
-  t.hy0 = max(0, t.y_t - radius - 1);
-  t.hy1 = min(H - 1, t.y_t + kTileY - 1 + radius);
+  // the tile's value rows [y_t, y_t + kTileY) are query rows [y_t - row_org, ...)
+  t.hy0 = max(0, t.y_t - row_org - radius - 1);
+  t.hy1 = min(H - 1, t.y_t - row_org + kTileY - 1 + radius);
   t.hx0 = max(0, t.x_t - radius - 1);
   t.ncols = min(W - 1, t.x_t + kTileX - 1 + radius) - t.hx0 + 1;
   t.slab_rows = slab_rows;
-  t.nslab = (t.hy1 - t.hy0 + slab_rows) / slab_rows;
+  t.nslab = max(0, t.hy1 - t.hy0 + slab_rows) / slab_rows;
   const int units = C * t.nslab;
   const float inv_p = 1.f / (float)P, inv_ncols = 1.f / (float)t.ncols;
 
@@ -596,7 +610,7 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
         const float iy = floorf(oy);
         const float fx = ox - ix;
         const float fy = oy - iy;
-        const int ty0 = qy + (int)iy - t.y_t;  // tile row of tap row y0
+        const int ty0 = qy + (int)iy + row_org - t.y_t;  // tile row of tap row y0
         const int tx0 = qx + (int)ix - t.x_t;  // tile column of tap column x0
         const bool y_a = ty0 >= 0 && ty0 < kTileY, y_b = ty0 >= -1 && ty0 < kTileY - 1;
         const bool x_a = tx0 >= xb && tx0 < xb + kBandX, x_b = tx0 >= xb - 1 && tx0 < xb + kBandX - 1;
@@ -639,15 +653,15 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
   for (int i = threadIdx.x; i < kTileY * kTileX * kChunk; i += blockDim.x) {
     const int jj = i % kChunk, xx = (i / kChunk) % kTileX, yy = i / (kChunk * kTileX);
     const int y = t.y_t + yy, x = t.x_t + xx;
-    if (jj < t.dn && y < H && x < W) {
-      g_value[((((long long)t.b * L + t.l) * H + y) * W + x) * M * (long long)D + (long long)t.m * D + t.d0 + jj] =
+    if (jj < t.dn && y < Hv && x < W) {
+      g_value[((((long long)t.b * L + t.l) * Hv + y) * W + x) * M * (long long)D + (long long)t.m * D + t.d0 + jj] =
           acc[yy * kAccRow + xx * kChunk + jj];
     }
   }
 }
 
 using QueryFn = void (*)(const __nv_bfloat16*, const float*, const float*, const float*, float*, float*, int, int,
-                        int, int, int, int, int, int, int, int, int, int);
+                        int, int, int, int, int, int, int, int, int, int, int, int);
 
 template <int VEC>
 QueryFn pick_query(bool p4, bool shfl) {
@@ -658,8 +672,8 @@ QueryFn pick_query(bool p4, bool shfl) {
 // the query side with the plan of _fwd_plan: VEC channels per thread (8, 4,
 // 2 or 1) and a tile of tile_y x tile_x queries per block
 int launch_query(const void* value, const void* offsets, const void* weights, const void* g, void* g_offsets,
-                 void* g_weights, int B, int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
-                 int tile_y, int tile_x, cudaStream_t stream) {
+                 void* g_weights, int B, int C, int L, int H, int row_org, int W, int M, int D, int P, int radius,
+                 int vec, int tile_y, int tile_x, cudaStream_t stream) {
   const long long K = (long long)M * D;
   if (B < 0 || C < 0 || L < 0 || H < 0 || W < 0 || P < 0 || K > 1024 ||
       2LL * (radius + 1LL) * (W + 1LL) * K >= (1LL << 31)) {
@@ -689,14 +703,16 @@ int launch_query(const void* value, const void* offsets, const void* weights, co
   fn<<<(unsigned)blocks, (unsigned)threads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(offsets),
       static_cast<const float*>(weights), static_cast<const float*>(g), static_cast<float*>(g_offsets),
-      static_cast<float*>(g_weights), C, L, H, W, M, D, P, radius, tile_y, tile_x, (int)ntx, (int)nty);
+      static_cast<float*>(g_weights), C, L, H, H + 2 * row_org, row_org, W, M, D, P, radius, tile_y, tile_x, (int)ntx,
+      (int)nty);
   return (int)cudaGetLastError();
 }
 
 int launch_value(const void* offsets, const void* weights, const void* g, void* g_value, int B, int C, int L, int H,
-                 int W, int M, int D, int P, int radius, cudaStream_t stream) {
+                 int row_org, int W, int M, int D, int P, int radius, cudaStream_t stream) {
+  const int Hv = H + 2 * row_org;  // the value's rows, each written once
   const int nchunk = (D + kChunk - 1) / kChunk;
-  const int ntx = (W + kTileX - 1) / kTileX, nty = (H + kTileY - 1) / kTileY;
+  const int ntx = (W + kTileX - 1) / kTileX, nty = (Hv + kTileY - 1) / kTileY;
   const long long blocks = (long long)B * M * nchunk * nty * ntx * L;
   if (blocks <= 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
@@ -717,34 +733,50 @@ int launch_value(const void* offsets, const void* weights, const void* g, void* 
                       reinterpret_cast<size_t>(weights) % 16 == 0;
   msda_bwd_value_kernel<<<(unsigned)blocks, kWarps * 32, (size_t)smem, stream>>>(
       static_cast<const float*>(offsets), static_cast<const float*>(weights), static_cast<const float*>(g),
-      static_cast<float*>(g_value), C, L, H, W, M, D, P, radius, nchunk, ntx, nty, (int)slab_rows, (int)slab_q,
-      (int)buf_floats, vec_g, vec_ow);
+      static_cast<float*>(g_value), C, L, H, Hv, row_org, W, M, D, P, radius, nchunk, ntx, nty, (int)slab_rows,
+      (int)slab_q, (int)buf_floats, vec_g, vec_ow);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // sides: 1 the query side (g_offsets, g_weights), 2 the value side (g_value),
-// 3 both. vec, tile_y, tile_x: the query side's plan (_fwd_plan), checked
-// again when the query side runs. Returns cudaErrorInvalidValue on a plan or
-// shape the kernels cannot take.
+// 3 both. row_halo 1: the value (and g_value) has H + 2 * radius rows, the
+// halo's (see above); 0: H rows, zero-padded. vec, tile_y, tile_x: the query
+// side's plan (_fwd_plan), checked again when the query side runs. Returns
+// cudaErrorInvalidValue on a plan or shape the kernels cannot take.
+extern "C" int msda_windowed_bwd_halo_sides_launch(const void* value, const void* offsets, const void* weights,
+                                                   const void* g, void* g_value, void* g_offsets, void* g_weights,
+                                                   int B, int C, int L, int H, int W, int M, int D, int P, int radius,
+                                                   int row_halo, int vec, int tile_y, int tile_x, int sides,
+                                                   void* stream) {
+  (void)cudaGetLastError();  // start from a clean error state: report only this launch
+  if (M <= 0 || D <= 0 || radius < 0 || sides < 1 || sides > 3 || (row_halo != 0 && row_halo != 1) ||
+      H < 0 || H + 2LL * radius > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int row_org = row_halo ? radius : 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (sides & 1) {
+    const int e = launch_query(value, offsets, weights, g, g_offsets, g_weights, B, C, L, H, row_org, W, M, D, P,
+                               radius, vec, tile_y, tile_x, st);
+    if (e != 0) return e;
+  }
+  if (sides & 2) {
+    const int e = launch_value(offsets, weights, g, g_value, B, C, L, H, row_org, W, M, D, P, radius, st);
+    if (e != 0) return e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The zero-padded call (no halo), as before the halo mode: the entries that
+// earlier revisions of this source export (scripts/msda_vs_source.py).
 extern "C" int msda_windowed_bwd_sides_launch(const void* value, const void* offsets, const void* weights,
                                               const void* g, void* g_value, void* g_offsets, void* g_weights, int B,
                                               int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
                                               int tile_y, int tile_x, int sides, void* stream) {
-  (void)cudaGetLastError();  // start from a clean error state: report only this launch
-  if (M <= 0 || D <= 0 || radius < 0 || sides < 1 || sides > 3) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (sides & 1) {
-    const int e = launch_query(value, offsets, weights, g, g_offsets, g_weights, B, C, L, H, W, M, D, P, radius, vec,
-                               tile_y, tile_x, st);
-    if (e != 0) return e;
-  }
-  if (sides & 2) {
-    const int e = launch_value(offsets, weights, g, g_value, B, C, L, H, W, M, D, P, radius, st);
-    if (e != 0) return e;
-  }
-  return (int)cudaGetLastError();
+  return msda_windowed_bwd_halo_sides_launch(value, offsets, weights, g, g_value, g_offsets, g_weights, B, C, L, H, W,
+                                             M, D, P, radius, 0, vec, tile_y, tile_x, sides, stream);
 }
 
 extern "C" int msda_windowed_bwd_launch(const void* value, const void* offsets, const void* weights, const void* g,

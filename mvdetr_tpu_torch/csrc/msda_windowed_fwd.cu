@@ -59,6 +59,14 @@
 // thread per head (two 16-byte loads a tap) were each slower on the card,
 // at R = 4 and R = 16.
 //
+// Row halo (the BEV-row-sharded path, mvdetr_tpu_torch/ops/msda_sharded.py,
+// as the TPU kernel's row_halo mode): the value holds Hv = H + 2R rows for the
+// H query rows, its first and last R rows real rows of the neighbouring
+// shards. A query at row y then reads value row y + row_org (row_org = R; 0
+// without a halo, Hv = H) and a tap's row is tested against Hv, not H; the
+// columns keep their zero padding. Nothing else changes, so a halo of zero
+// rows gives the zero-padded call's bits.
+//
 // Interface: plain C functions, built with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and loaded with ctypes (mvdetr_tpu_torch/ops/msda_windowed.py, whose
@@ -125,8 +133,8 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
                          const float* __restrict__ offsets,        // [B, C, H, W, M, L, P, 2]
                          const float* __restrict__ weights,        // [B, C, H, W, M, L, P]
                          float* __restrict__ out,                  // [B, C, H, W, K]
-                         int C, int L, int H, int W, int M, int D, int P, int radius, int tile_y, int tile_x,
-                         int ntx, int nty) {
+                         int C, int L, int H, int Hv, int row_org, int W, int M, int D, int P, int radius,
+                         int tile_y, int tile_x, int ntx, int nty) {
   // blockIdx.x = ((bc * nty + ty) * ntx + tx) * M + m, bc = b * C + c
   int r = blockIdx.x;
   const int m = r % M;
@@ -165,8 +173,8 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
     const int y0 = y + (int)iy;
     const bool xa = (unsigned)x0 < (unsigned)W;
     const bool xb = (unsigned)(x0 + 1) < (unsigned)W;
-    const bool ya = (unsigned)y0 < (unsigned)H;
-    const bool yb = (unsigned)(y0 + 1) < (unsigned)H;
+    const bool ya = (unsigned)(y0 + row_org) < (unsigned)Hv;
+    const bool yb = (unsigned)(y0 + row_org + 1) < (unsigned)Hv;
     const __nv_bfloat16* p = own + ((int)iy * W + (int)ix) * K;
     float v00[VEC], v01[VEC], v10[VEC], v11[VEC];
     unpack<VEC>(ldg_or_zero<VEC>(p, ya && xa), v00);
@@ -184,9 +192,9 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
   const long long q = ((long long)bc * H + y) * W + x;
   const float* og = offsets + (q * M + m) * L * P * 2;  // the (query, head)'s samples, level-major
   const float* wg = weights + (q * M + m) * L * P;
-  // the thread's own cell of level l's value plane, its channels of head m
+  // the thread's own cell of level l's value plane (Hv rows, the query's at y + row_org), its channels of head m
   auto own_cell = [&](int l) {
-    return value + ((((long long)b * L + l) * H + y) * W + x) * K + (long long)m * D + chunk * VEC;
+    return value + ((((long long)b * L + l) * Hv + y + row_org) * W + x) * K + (long long)m * D + chunk * VEC;
   };
   if constexpr (PT == 4) {
     float4 o01 = make_float4(0.f, 0.f, 0.f, 0.f), o23 = o01, w4 = o01;
@@ -235,7 +243,7 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
 }
 
 using KernelFn = void (*)(const __nv_bfloat16*, const float*, const float*, float*, int, int, int, int, int, int,
-                          int, int, int, int, int, int);
+                          int, int, int, int, int, int, int, int);
 
 KernelFn pick_kernel(int vec, bool p4) {
   switch (vec) {
@@ -250,16 +258,21 @@ KernelFn pick_kernel(int vec, bool p4) {
 
 // Launch with the plan of _fwd_plan (ops/msda_windowed.py): VEC channels
 // per thread (8, 4, 2 or 1) and a tile of tile_y x tile_x queries per block.
-// Returns cudaErrorInvalidValue on a plan or shape the kernel cannot take.
-extern "C" int msda_windowed_fwd_launch(const void* value, const void* offsets, const void* weights, void* out,
-                                        int B, int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
-                                        int tile_y, int tile_x, void* stream) {
+// row_halo 1: the value has H + 2 * radius rows, the halo's (see above); 0:
+// H rows, zero-padded. Returns cudaErrorInvalidValue on a plan or shape the
+// kernel cannot take.
+extern "C" int msda_windowed_fwd_halo_launch(const void* value, const void* offsets, const void* weights, void* out,
+                                             int B, int C, int L, int H, int W, int M, int D, int P, int radius,
+                                             int row_halo, int vec, int tile_y, int tile_x, void* stream) {
   (void)cudaGetLastError();  // start from a clean error state: report only this launch
   const long long K = (long long)M * D;
   if (B < 0 || C < 0 || L < 0 || H < 0 || W < 0 || M <= 0 || D <= 0 || P < 0 || radius < 0 || K > 1024 ||
-      (radius + 1LL) * (W + 1LL) * K >= (1LL << 31)) {
+      (radius + 1LL) * (W + 1LL) * K >= (1LL << 31) || (row_halo != 0 && row_halo != 1) ||
+      H + 2LL * radius > 0x7fffffffLL) {
     return (int)cudaErrorInvalidValue;
   }
+  const int row_org = row_halo ? radius : 0;
+  const int Hv = H + 2 * row_org;
   if ((vec != 1 && vec != 2 && vec != 4 && vec != 8) || D % vec != 0 || tile_y < 1 || tile_x < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -276,9 +289,18 @@ extern "C" int msda_windowed_fwd_launch(const void* value, const void* offsets, 
   const bool p4 = P == 4 && reinterpret_cast<size_t>(offsets) % 16 == 0 && reinterpret_cast<size_t>(weights) % 16 == 0;
   pick_kernel(vec, p4)<<<(unsigned)blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(offsets),
-      static_cast<const float*>(weights), static_cast<float*>(out), C, L, H, W, M, D, P, radius, tile_y, tile_x,
-      (int)ntx, (int)nty);
+      static_cast<const float*>(weights), static_cast<float*>(out), C, L, H, Hv, row_org, W, M, D, P, radius, tile_y,
+      tile_x, (int)ntx, (int)nty);
   return (int)cudaGetLastError();
+}
+
+// The zero-padded call (no halo), as before the halo mode: the entry that
+// earlier revisions of this source export (scripts/msda_vs_source.py).
+extern "C" int msda_windowed_fwd_launch(const void* value, const void* offsets, const void* weights, void* out,
+                                        int B, int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
+                                        int tile_y, int tile_x, void* stream) {
+  return msda_windowed_fwd_halo_launch(value, offsets, weights, out, B, C, L, H, W, M, D, P, radius, 0, vec, tile_y,
+                                       tile_x, stream);
 }
 
 extern "C" const char* msda_windowed_fwd_error_string(int code) {

@@ -177,11 +177,17 @@ class FrameDataset:
         rng: Optional[np.random.Generator] = None,
         num_workers: int = 0,
         drop_last: Optional[bool] = None,
+        local_slice: Optional[slice] = None,
     ) -> Iterator[dict]:
         """Yield collated batches. ``drop_last`` defaults to True in training
         so every step sees a full batch. Per-item augmentation seeds are drawn
         for the whole order first, so ``num_workers`` threads give the same
-        batches as none."""
+        batches as none.
+
+        ``local_slice``: the rows of each global batch that this process
+        assembles (:func:`mvdetr_tpu_torch.parallel.process_batch_slice`);
+        the order and the seeds are drawn for the global batches, so every
+        process sees the same stream whatever its slice."""
         shuffle = self.train if shuffle is None else shuffle
         drop_last = self.train if drop_last is None else drop_last
         rng = rng or self._rng
@@ -191,6 +197,7 @@ class FrameDataset:
         if drop_last:
             order = order[: len(order) - len(order) % batch_size] if len(order) >= batch_size else order
         seeds = rng.integers(2**31, size=len(order))
+        sel = local_slice if local_slice is not None else slice(None)
 
         def fetch(args):
             i, seed = args
@@ -201,7 +208,7 @@ class FrameDataset:
             idxs = order[start : start + batch_size]
             if len(idxs) < batch_size and drop_last:
                 continue
-            chunks.append(list(zip(idxs, seeds[start : start + batch_size])))
+            chunks.append(list(zip(idxs[sel], seeds[start : start + batch_size][sel])))
 
         if num_workers > 0:
             # one-batch lookahead keeps memory bounded while hiding item latency

@@ -19,6 +19,11 @@ Three attention modes, on same-shape levels:
   (:func:`mvdetr_tpu_torch.ops.msda.ms_deform_attn_gather`: a plain gather
   forward, and B3 for the value's gradient on the card).
 
+With a ``mesh`` whose ``bev`` axis holds more than one process, ``windowed``
+attention runs BEV-row-sharded with a ``+-radius`` halo exchange
+(:mod:`mvdetr_tpu_torch.ops.msda_sharded`; B1 and B2 in their ``row_halo``
+mode on every shard), as JAX's module picks it (`deformable.py:111-136,204-209`).
+
 Parameter names follow the reference checkpoint
 (``self_attn.{value_proj,sampling_offsets,attention_weights,output_proj}``,
 ``norm1``, ``linear1``, ``linear2``, ``norm2``, ``layers.{i}``).
@@ -36,10 +41,21 @@ import torch.nn.functional as F
 
 from mvdetr_tpu_torch.models.layers import Dropout, LayerNorm, Linear
 from mvdetr_tpu_torch.ops.msda import fma, ms_deform_attn_gather
+from mvdetr_tpu_torch.ops.msda_sharded import bev_row_sharded_windowed_attention
 from mvdetr_tpu_torch.ops.msda_warped import ms_deform_attn_warped, shadow_coords
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 
 _MODES = ("windowed", "warped", "gather")
+_logged = set()
+
+
+def log_once(key: str, msg: str) -> None:
+    """Print ``msg`` the first time ``key`` is seen in this process (a
+    requested mesh axis that the attention cannot use is said once, loudly,
+    as in the JAX package)."""
+    if key not in _logged:
+        _logged.add(key)
+        print(f"mvdetr_tpu_torch: {msg}")
 
 
 def radial_offset_bias(n_heads: int, n_levels: int, n_points: int,
@@ -102,16 +118,16 @@ class MSDeformAttn(nn.Module):
     normalised; required), held as it is. Either buffer is non-persistent,
     so ``state_dict`` keeps the reference checkpoint's names. Only the
     clamped modes rescale the offsets' radial init to ``radius``
-    (`deformable.py:158`)."""
+    (`deformable.py:158`). ``mesh``: see :meth:`_bev_shards`."""
 
     def __init__(self, d_model: int = 128, n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
                  dtype: torch.dtype = torch.float32, mode: str = "windowed", radius: int = 4,
-                 generator=None, reference_points: Optional[np.ndarray] = None, spatial_shape=None):
+                 generator=None, reference_points: Optional[np.ndarray] = None, spatial_shape=None, mesh=None):
         super().__init__()
         if mode not in _MODES:
             raise ValueError(f"unknown MSDeformAttn mode {mode!r}; the modes are {_MODES}")
         self.d_model, self.n_levels, self.n_heads, self.n_points = d_model, n_levels, n_heads, n_points
-        self.dtype, self.radius, self.mode = dtype, radius, mode
+        self.dtype, self.radius, self.mode, self.mesh = dtype, radius, mode, mesh
         m, l, p = n_heads, n_levels, n_points
         self.value_proj = Linear(d_model, d_model, dtype, generator=generator)
         max_r = float(radius) if mode in ("windowed", "warped") else None  # `deformable.py:158-162`
@@ -143,6 +159,27 @@ class MSDeformAttn(nn.Module):
             # [Q, 1, L, P or 1, 2]: broadcast over the heads (and the points), as `deformable.py:190-193`
             self.register_buffer("reference_points", torch.from_numpy(ref[:, None].copy()), persistent=False)
 
+    def _bev_shards(self, h: int) -> int:
+        """The BEV-row shard count, or 1 where it does not apply: no mesh, a
+        ``bev`` axis of one, a mode other than ``windowed``, or ``h`` rows that
+        do not split into shards of at least ``radius`` rows. A ``bev`` axis
+        that cannot be used is said once (`deformable.py:111-136`): a silent
+        fallback would leave ``--bev_shards N`` doing nothing."""
+        n = 1 if self.mesh is None else self.mesh.shape["bev"]
+        if n <= 1:
+            return 1
+        if self.mode != "windowed":
+            log_once(f"bev_shards_mode_{self.mode}",
+                     f"mesh has bev={n} but attention mode is '{self.mode}' — BEV-row sharding only applies to "
+                     f"'windowed'; running unsharded")
+            return 1
+        if h % n != 0 or h // n < self.radius:
+            log_once(f"bev_shards_{h}_{n}",
+                     f"mesh has bev={n} but encoder rows {h} are not divisible into >={self.radius}-row shards — "
+                     f"running unsharded (pick bev_shards dividing {h})")
+            return 1
+        return n
+
     def forward(self, query: torch.Tensor, input_flatten: torch.Tensor, spatial_shape):
         """``query [B, Q, C]``, ``input_flatten [B, S, C]`` (level-major, every
         level ``spatial_shape = (H, W)``) -> ``(out [B, Q, C],
@@ -169,6 +206,9 @@ class MSDeformAttn(nn.Module):
         weights = weights.reshape(b, c, h, w, m, l, p)
         if self.mode == "warped":
             out = ms_deform_attn_warped(value, self.shadow_xy, offsets, weights, radius=self.radius)
+        elif self._bev_shards(h) > 1:
+            out = bev_row_sharded_windowed_attention(value, offsets, weights, self.mesh, radius=self.radius)
+            out = out.reshape(b, c * h * w, m * d)
         else:
             out = windowed_attention(value, offsets, weights, radius=self.radius)
         return self.output_proj(out), clip
@@ -197,10 +237,10 @@ class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32, mode: str = "windowed",
                  radius: int = 4, generator=None, reference_points: Optional[np.ndarray] = None,
-                 spatial_shape=None):
+                 spatial_shape=None, mesh=None):
         super().__init__()
         self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, dtype, mode, radius, generator,
-                                      reference_points, spatial_shape)
+                                      reference_points, spatial_shape, mesh)
         self.dropout1 = Dropout(dropout)
         self.norm1 = LayerNorm(d_model, dtype)
         self.linear1 = Linear(d_model, d_ffn, dtype, generator=generator)
@@ -228,7 +268,7 @@ class DeformableEncoder(nn.Module):
     def __init__(self, num_layers: int = 3, d_model: int = 128, d_ffn: int = 512, dropout: float = 0.1,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 4, dtype: torch.dtype = torch.float32,
                  mode: str = "windowed", radius: int = 4, generator=None,
-                 reference_points: Optional[np.ndarray] = None, spatial_shape=None):
+                 reference_points: Optional[np.ndarray] = None, spatial_shape=None, mesh=None):
         super().__init__()
         if mode == "gather" and reference_points is None:
             if spatial_shape is None:
@@ -236,7 +276,7 @@ class DeformableEncoder(nn.Module):
             reference_points = grid_reference_points((tuple(spatial_shape),) * n_levels)
         self.layers = nn.ModuleList([
             DeformableEncoderLayer(d_model, d_ffn, dropout, n_levels, n_heads, n_points, dtype, mode, radius,
-                                   generator, reference_points, spatial_shape)
+                                   generator, reference_points, spatial_shape, mesh)
             for _ in range(num_layers)
         ])
 

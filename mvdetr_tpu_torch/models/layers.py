@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mvdetr_tpu_torch.parallel.collectives import all_reduce_sum, group_size
+
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
     """Flax's default kernel init: truncated normal (+-2 std) with variance 1/fan_in."""
@@ -123,6 +125,14 @@ class BatchNorm2d(nn.Module):
     reference checkpoints load as they are. While ``freeze_stats`` is set
     (:func:`frozen_running_stats`), training mode still normalises with the
     batch statistics but leaves the running ones as they are.
+
+    With a ``data_group`` (:func:`bind_data_axis`) the statistics are those of
+    the global batch, as JAX's data-sharded step takes them: each rank's f32
+    means of x and x^2 are all-reduced over the group (in rank order, with a
+    backward that reaches the other ranks' inputs, as SyncBatchNorm's does)
+    and divided by its size: the global batch's means, since every rank
+    holds as many frames. The variance then follows the same formula. A
+    group of one rank gives the ungrouped statistics' bits.
     """
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
@@ -134,12 +144,17 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
         self.freeze_stats = False
+        self.data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
         if self.training:
             mean = x32.mean(dim=(0, 2, 3))
-            var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            square = (x32 * x32).mean(dim=(0, 2, 3))
+            if self.data_group is not None:
+                means = all_reduce_sum(torch.stack([mean, square]), self.data_group) / group_size(self.data_group)
+                mean, square = means[0], means[1]
+            var = torch.clamp(square - mean * mean, min=0.0)
             if not self.freeze_stats:
                 self._update_running_stats(mean, var)
         else:
@@ -183,6 +198,11 @@ class Dropout(nn.Module):
     (:func:`set_dropout_generator`); a generator on the input's device is
     required, so a run is reproducible from its seed. JAX's random bits
     cannot be matched, so the parity tests run at rate 0.
+
+    With a ``data_shard`` ``(i, n)`` (:func:`bind_data_axis`) the input is
+    rank i's block of a global batch n times as large along axis 0: the mask
+    is drawn for the global batch and this rank keeps its block, so the ranks
+    together apply the mask of the one-process step.
     """
 
     def __init__(self, p: float, channels: bool = False, broadcast_dims: tuple = ()):
@@ -191,6 +211,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate must be in [0, 1], got {p}")
         self.p, self.channels, self.broadcast_dims = float(p), channels, tuple(broadcast_dims)
         self.generator: torch.Generator | None = None
+        self.data_shard = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -202,8 +223,25 @@ class Dropout(nn.Module):
                              "(train_step does)")
         shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2) if self.channels else tuple(x.shape)
         shape = tuple(1 if i in self.broadcast_dims else s for i, s in enumerate(shape))
-        keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        index, count = self.data_shard
+        if count > 1 and 0 not in self.broadcast_dims:
+            rows = shape[0]
+            full = torch.rand((rows * count,) + shape[1:], generator=self.generator, device=x.device)
+            keep = full[index * rows:(index + 1) * rows] >= self.p
+        else:
+            keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def bind_data_axis(module: nn.Module, mesh) -> None:
+    """Put every :class:`BatchNorm2d` and :class:`Dropout` under ``module``
+    on ``mesh``'s ``data`` axis: batch statistics over its group, dropout
+    masks cut from the global batch's."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.data_group = mesh.group("data")
+        elif isinstance(m, Dropout):
+            m.data_shard = (mesh.index("data"), mesh.shape["data"])
 
 
 def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) -> None:

@@ -17,6 +17,12 @@ Pipeline:
    cameras (encoder dropout ``encoder_dropout``, 0.1 as in JAX);
 6. BEV heads: occupancy heatmap and offset.
 
+With a ``mesh`` (:func:`mvdetr_tpu_torch.parallel.make_mesh`), the model is
+one rank's part of the JAX model on that mesh: its BatchNorms take the
+statistics of the global batch over the ``data`` axis and its dropout masks
+are its block of the global batch's, and the ``deform_trans`` encoder's
+windowed attention shards the BEV rows over the ``bev`` axis.
+
 The public layout is the JAX package's: NHWC images ``[B, N, H, W, 3]`` and
 NHWC head outputs. Inside, convolutions run on NCHW-shaped tensors in the
 channels-last memory format, which is the same bytes as NHWC.
@@ -42,7 +48,7 @@ import torch.nn as nn
 
 from mvdetr_tpu_torch.device import resolve_device
 from mvdetr_tpu_torch.models.heads import HEATMAP_BIAS_INIT, OutputHead
-from mvdetr_tpu_torch.models.layers import Conv2d, Dropout
+from mvdetr_tpu_torch.models.layers import Conv2d, Dropout, bind_data_axis
 from mvdetr_tpu_torch.models.resnet import resnet_features
 from mvdetr_tpu_torch.models.vgg import vgg11_features
 from mvdetr_tpu_torch.models.world_feat import build_world_feat
@@ -69,7 +75,7 @@ class MVDeTr(nn.Module):
                  reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                  compute_dtype: Optional[torch.dtype] = None, attn_mode: str = "auto", attn_radius: int = 4,
                  warp_convention: str = "center", dropout: float = 0.0, encoder_dropout: float = 0.1,
-                 remat_backbone: bool = False, generator: Optional[torch.Generator] = None):
+                 remat_backbone: bool = False, generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         if arch not in ("resnet18", "vgg11"):
             raise ValueError(f"unsupported arch: {arch}")
@@ -101,12 +107,15 @@ class MVDeTr(nn.Module):
         self.world_feat = build_world_feat(world_feat_arch, num_cam, self.Rworld_shape,
                                            base_dim=bottleneck_dim or 512, reference_points=reference_points,
                                            n_points=n_points, dtype=dt, attn_mode=attn_mode,
-                                           attn_radius=attn_radius, dropout=encoder_dropout, generator=g)
+                                           attn_radius=attn_radius, dropout=encoder_dropout, generator=g,
+                                           mesh=mesh)
         wdim = bottleneck_dim or 512
         self.world_heatmap = OutputHead(wdim, 1, outfeat_dim, HEATMAP_BIAS_INIT, dt, g)
         self.world_offset = OutputHead(wdim, 2, outfeat_dim, dtype=dt, generator=g)
         self.register_buffer("proj_mats", torch.as_tensor(np.asarray(proj_mats), dtype=torch.float32),
                              persistent=False)
+        if mesh is not None:
+            bind_data_axis(self, mesh)
 
     @classmethod
     def from_rig(cls, rig, world_reduce: int = 4, img_reduce: int = 12, arch: str = "resnet18",
@@ -114,9 +123,11 @@ class MVDeTr(nn.Module):
                  n_points: int = 4, compute_dtype: Optional[torch.dtype] = None, attn_mode: str = "auto",
                  attn_radius: int = 4, warp_convention: str = "center", dropout: float = 0.0,
                  encoder_dropout: float = 0.1, remat_backbone: bool = False, device="cuda",
-                 seed: int = 0) -> "MVDeTr":
+                 seed: int = 0, mesh=None) -> "MVDeTr":
         """Build from a :class:`~mvdetr_tpu_torch.geometry.CameraRig`, deriving
         the projection matrices and the reference map (`mvdetr.py:82-95`).
+        ``mesh``: this rank's place on a process mesh (see the module's
+        docstring).
 
         Weights are drawn from ``torch.Generator().manual_seed(seed)``. The
         model lands on ``device`` (default the card; raises without one unless
@@ -142,7 +153,7 @@ class MVDeTr(nn.Module):
             reference_points=ref, n_points=n_points, compute_dtype=compute_dtype, attn_mode=attn_mode,
             attn_radius=attn_radius, warp_convention=warp_convention, dropout=dropout,
             encoder_dropout=encoder_dropout, remat_backbone=remat_backbone,
-            generator=torch.Generator().manual_seed(seed),
+            generator=torch.Generator().manual_seed(seed), mesh=mesh,
         )
         return model.to(dev).eval()
 

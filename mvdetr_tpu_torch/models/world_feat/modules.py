@@ -121,7 +121,7 @@ class DeformTransWorldFeat(nn.Module):
                  hidden_dim: int = 128, nhead: int = 8, dim_feedforward: int = 512, dropout: float = 0.1,
                  n_points: int = 4, stride: int = 2, reference_points: Optional[np.ndarray] = None,
                  dtype: torch.dtype = torch.float32, attn_mode: str = "auto", attn_radius: int = 4,
-                 generator=None):
+                 generator=None, mesh=None):
         super().__init__()
         self.num_cam, self.hidden_dim, self.dtype = num_cam, hidden_dim, dtype
         self.world_shape = tuple(int(v) for v in world_shape)
@@ -137,7 +137,8 @@ class DeformTransWorldFeat(nn.Module):
             nn.init.normal_(self.lvl_embedding, 0.0, 1.0, generator=generator)
         self.encoder = DeformableEncoder(3, hidden_dim, dim_feedforward, dropout, num_cam, nhead, n_points, dtype,
                                          self.mode, attn_radius, generator,
-                                         reference_points if self.mode in ("warped", "gather") else None, self.grid)
+                                         reference_points if self.mode in ("warped", "gather") else None, self.grid,
+                                         mesh)
         self.merge_linear = nn.Sequential(
             Conv2d(num_cam * hidden_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
             nn.ReLU(),
@@ -357,9 +358,10 @@ class DeformConvWorldFeat(nn.Module):
 def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
                      reference_points: Optional[np.ndarray] = None, n_points: int = 4,
                      dtype: torch.dtype = torch.float32, attn_mode: str = "auto", attn_radius: int = 4,
-                     dropout: float = 0.1, generator=None) -> nn.Module:
+                     dropout: float = 0.1, generator=None, mesh=None) -> nn.Module:
     """Variant dispatch (`modules.py:259-284`). Only ``deform_trans`` takes
-    the reference map, point count, mode and radius; ``deform_conv`` takes no
+    the reference map, point count, mode, radius and ``mesh`` (its ``bev``
+    axis shards the windowed attention's rows); ``deform_conv`` takes no
     dtype (it computes in f32, as in JAX). ``dropout`` is the encoders' rate
     (``trans``, ``deform_trans``, ``aio``): 0.1 as in the JAX modules, which
     do not expose it."""
@@ -373,7 +375,7 @@ def build_world_feat(arch: str, num_cam: int, world_shape, base_dim: int = 128,
     if arch == "deform_trans":
         return DeformTransWorldFeat(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
                                     n_points=n_points, reference_points=reference_points, dtype=dtype,
-                                    attn_mode=attn_mode, attn_radius=attn_radius, generator=generator)
+                                    attn_mode=attn_mode, attn_radius=attn_radius, generator=generator, mesh=mesh)
     if arch == "aio":
         return DeformTransWorldFeatAIO(num_cam, world_shape, base_dim, hidden_dim=base_dim, dropout=dropout,
                                        dtype=dtype, generator=generator)

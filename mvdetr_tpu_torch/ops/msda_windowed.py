@@ -19,6 +19,13 @@ offset, clamped to ``+-radius`` cells. The pieces:
   a CPU tensor runs the plain forward and backward, a CUDA tensor the
   kernels, with no fallback between them.
 
+Row halo (``row_halo=True``, the BEV-row-sharded path of
+:mod:`mvdetr_tpu_torch.ops.msda_sharded`, as in the JAX functions): the value
+holds ``H + 2R`` rows for the ``H`` query rows, and its first and last ``R``
+rows are real rows of the neighbouring shards. A query at row ``y`` reads
+value row ``y + R``; only the columns are zero-padded. The backward returns
+``g_value`` over all ``H + 2R`` rows, halo rows included.
+
 Gradient convention. The TPU kernel's hat derivative is ``-sign(t)`` for
 ``|t| < 1`` and 0 otherwise (`msda_kernel_bwd.py:88,98`), so an offset that is
 an exact integer gets a zero cotangent. Autodiff of the JAX XLA op gives a
@@ -42,12 +49,24 @@ KERNEL_NAME = "msda_windowed_fwd"
 BWD_KERNEL_NAME = "msda_windowed_bwd"
 
 
+def _value_rows(value: torch.Tensor, offsets: torch.Tensor, radius: int, row_halo: bool, name: str):
+    """``(H, Hv, row_org)``: the query rows, the value's rows and the value
+    row of query row 0 (``R`` with a row halo, else 0); raises unless
+    ``Hv = H + 2 * row_org``."""
+    h, hv = offsets.shape[2], value.shape[2]
+    org = int(radius) if row_halo else 0
+    if hv != h + 2 * org:
+        raise ValueError(f"{name}: {hv} value rows for {h} query rows; row_halo={row_halo} needs {h + 2 * org}")
+    return h, hv, org
+
+
 def ms_deform_attn_windowed(
-    value: torch.Tensor,  # [B, L, H, W, M, D]
+    value: torch.Tensor,  # [B, L, Hv, W, M, D], Hv = H (+ 2R with row_halo)
     offsets: torch.Tensor,  # [B, C, H, W, M, L, P, 2] raw offsets in cells (x, y)
     weights: torch.Tensor,  # [B, C, H, W, M, L, P]
     radius: int = 4,
     flatten: bool = True,
+    row_halo: bool = False,
 ) -> torch.Tensor:
     """Plain version: ``[B, C*H*W, M*D]`` f32 (``[B, C, H, W, M*D]`` when
     ``flatten=False``).
@@ -58,17 +77,20 @@ def ms_deform_attn_windowed(
     ``[B, C, H, W, M, D]`` gather at a time, and uses the kernel's
     arithmetic: the fraction comes from the clamped offset itself, and the
     taps are blended as ``(1-fy)*((1-fx)*v00 + fx*v01) + fy*(...)``.
+    ``row_halo``: the value carries the ``+-radius`` halo rows (see the
+    module's docstring).
     """
-    b, l, h, w, m, d = value.shape
+    b, l, _, w, m, d = value.shape
+    h, hv, org = _value_rows(value, offsets, radius, row_halo, "ms_deform_attn_windowed")
     c, p = offsets.shape[1], offsets.shape[6]
     dev = value.device
     r = float(radius)
     # rows ordered (b, l, m, y, x) so one flat index addresses a tap
-    v = value.float().permute(0, 1, 4, 2, 3, 5).reshape(b * l * m * h * w, d)
+    v = value.float().permute(0, 1, 4, 2, 3, 5).reshape(b * l * m * hv * w, d)
     off = offsets.float()
     wgt = weights.float()
     xs = torch.arange(w, device=dev).view(1, 1, 1, w, 1)
-    ys = torch.arange(h, device=dev).view(1, 1, h, 1, 1)
+    ys = torch.arange(org, h + org, device=dev).view(1, 1, h, 1, 1)  # the queries' value rows
     bm = (torch.arange(b, device=dev).view(b, 1, 1, 1, 1) * l * m
           + torch.arange(m, device=dev).view(1, 1, 1, 1, m))  # (b*L + 0)*M + m
     acc = torch.zeros((b, c, h, w, m, d), dtype=torch.float32, device=dev)
@@ -86,8 +108,8 @@ def ms_deform_attn_windowed(
             for dy in (0, 1):
                 for dx in (0, 1):
                     yy, xx = y0 + dy, x0 + dx
-                    ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                    row = ((bm + li * m) * h + yy.clamp(0, h - 1)) * w + xx.clamp(0, w - 1)
+                    ok = (yy >= 0) & (yy < hv) & (xx >= 0) & (xx < w)
+                    row = ((bm + li * m) * hv + yy.clamp(0, hv - 1)) * w + xx.clamp(0, w - 1)
                     tap = v.index_select(0, row.reshape(-1)).view(b, c, h, w, m, d)
                     taps.append(tap * ok[..., None])
             top = (1.0 - fx) * taps[0] + fx * taps[1]
@@ -104,11 +126,12 @@ def _hat_slope(t: torch.Tensor) -> torch.Tensor:
 
 
 def ms_deform_attn_windowed_bwd(
-    value: torch.Tensor,  # [B, L, H, W, M, D]
+    value: torch.Tensor,  # [B, L, Hv, W, M, D], Hv = H (+ 2R with row_halo)
     offsets: torch.Tensor,  # [B, C, H, W, M, L, P, 2] raw offsets
     weights: torch.Tensor,  # [B, C, H, W, M, L, P]
     g: torch.Tensor,  # [B, C, H, W, M*D] (or [B, C*H*W, M*D]) cotangent of the forward
     radius: int = 4,
+    row_halo: bool = False,
 ):
     """Plain backward: ``(g_value, g_offsets, g_weights)`` in f32, shaped as
     the inputs.
@@ -126,21 +149,23 @@ def ms_deform_attn_windowed_bwd(
       keeps its slope, as on the TPU. ``g_oy`` likewise with the axes
       swapped;
     - each tap's value cell gets ``(w * cy) * cx * g``, summed with
-      ``index_add_`` (deterministic on the CPU).
+      ``index_add_`` (deterministic on the CPU); with ``row_halo`` over all
+      ``H + 2R`` value rows.
     """
-    b, l, h, w, m, d = value.shape
+    b, l, _, w, m, d = value.shape
+    h, hv, org = _value_rows(value, offsets, radius, row_halo, "ms_deform_attn_windowed_bwd")
     c, p = offsets.shape[1], offsets.shape[6]
     dev = value.device
     r = float(radius)
-    v = value.float().permute(0, 1, 4, 2, 3, 5).reshape(b * l * m * h * w, d)
+    v = value.float().permute(0, 1, 4, 2, 3, 5).reshape(b * l * m * hv * w, d)
     gq = g.float().reshape(b, c, h, w, m, d)
     off = offsets.float()
     wgt = weights.float()
     xs = torch.arange(w, device=dev).view(1, 1, 1, w, 1)
-    ys = torch.arange(h, device=dev).view(1, 1, h, 1, 1)
+    ys = torch.arange(org, h + org, device=dev).view(1, 1, h, 1, 1)  # the queries' value rows
     bm = (torch.arange(b, device=dev).view(b, 1, 1, 1, 1) * l * m
           + torch.arange(m, device=dev).view(1, 1, 1, 1, m))
-    g_value = torch.zeros((b * l * m * h * w, d), dtype=torch.float32, device=dev)
+    g_value = torch.zeros((b * l * m * hv * w, d), dtype=torch.float32, device=dev)
     g_off = torch.zeros(off.shape, dtype=torch.float32, device=dev)
     g_wgt = torch.zeros(wgt.shape, dtype=torch.float32, device=dev)
     for li in range(l):
@@ -160,8 +185,8 @@ def ms_deform_attn_windowed_bwd(
             for dy in (0, 1):
                 for dx in (0, 1):
                     yy, xx = y0 + dy, x0 + dx
-                    ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-                    row = ((bm + li * m) * h + yy.clamp(0, h - 1)) * w + xx.clamp(0, w - 1)
+                    ok = (yy >= 0) & (yy < hv) & (xx >= 0) & (xx < w)
+                    row = ((bm + li * m) * hv + yy.clamp(0, hv - 1)) * w + xx.clamp(0, w - 1)
                     tap = v.index_select(0, row.reshape(-1)).view(b, c, h, w, m, d) * ok[..., None]
                     taps.append(tap)
                     rows.append(row)
@@ -181,7 +206,7 @@ def ms_deform_attn_windowed_bwd(
             g_off[:, :, :, :, :, li, pi, 1] = torch.where(oy_raw.abs() <= r, wl * sy, 0.0)
             for row, coef in zip(rows, corners):
                 g_value.index_add_(0, row.reshape(-1), (coef[..., None] * gq).reshape(-1, d))
-    g_value = g_value.view(b, l, m, h, w, d).permute(0, 1, 3, 4, 2, 5).contiguous()
+    g_value = g_value.view(b, l, m, hv, w, d).permute(0, 1, 3, 4, 2, 5).contiguous()
     return g_value, g_off, g_wgt
 
 
@@ -246,14 +271,17 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(kernel_build.build(KERNEL_NAME)))
     lib.msda_windowed_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     lib.msda_windowed_fwd_launch.restype = ctypes.c_int
+    lib.msda_windowed_fwd_halo_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.msda_windowed_fwd_halo_launch.restype = ctypes.c_int
     lib.msda_windowed_fwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_kernel_inputs(name: str, value, offsets, weights, radius):
+def _check_kernel_inputs(name: str, value, offsets, weights, radius, row_halo: bool = False):
     """Device, type, shape and contiguity checks shared by B1 and B2; returns
-    ``(b, c, l, h, w, m, d, p)``."""
+    ``(b, c, l, h, w, m, d, p)`` with ``h`` the query rows (the value has
+    ``h + 2 * radius`` with ``row_halo``)."""
     if value.device.type != "cuda":
         raise ValueError(f"{name} runs on a CUDA device only, got value on {value.device}")
     for what, t in (("offsets", offsets), ("weights", weights)):
@@ -264,8 +292,9 @@ def _check_kernel_inputs(name: str, value, offsets, weights, radius):
                          f"{value.dtype}, {offsets.dtype}, {weights.dtype}")
     if value.dim() != 6 or offsets.dim() != 8 or weights.dim() != 7:
         raise ValueError(f"{name}: value must be 6-D, offsets 8-D and weights 7-D")
-    b, l, h, w, m, d = value.shape
-    c, p = offsets.shape[1], offsets.shape[6]
+    b, l, _, w, m, d = value.shape
+    c, h, p = offsets.shape[1], offsets.shape[2], offsets.shape[6]
+    _value_rows(value, offsets, radius, row_halo, name)
     if tuple(offsets.shape) != (b, c, h, w, m, l, p, 2) or tuple(weights.shape) != (b, c, h, w, m, l, p):
         raise ValueError(f"{name}: shapes do not fit value {tuple(value.shape)}: offsets "
                          f"{tuple(offsets.shape)}, weights {tuple(weights.shape)}")
@@ -281,15 +310,16 @@ def _value_align(value: torch.Tensor) -> int:
 
 
 def msda_windowed_fwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor,
-                      radius: int) -> torch.Tensor:
-    """Launch the B1 kernel: ``value [B, L, H, W, M, D]`` bf16, raw
-    ``offsets [B, C, H, W, M, L, P, 2]`` f32 and ``weights [B, C, H, W, M, L, P]``
-    f32, all contiguous on one CUDA device -> ``[B, C, H, W, M*D]`` f32,
-    tiled by :func:`_fwd_plan`.
+                      radius: int, row_halo: bool = False) -> torch.Tensor:
+    """Launch the B1 kernel: ``value [B, L, H, W, M, D]`` bf16 (``H + 2R``
+    rows with ``row_halo``), raw ``offsets [B, C, H, W, M, L, P, 2]`` f32 and
+    ``weights [B, C, H, W, M, L, P]`` f32, all contiguous on one CUDA device
+    -> ``[B, C, H, W, M*D]`` f32, tiled by :func:`_fwd_plan`.
 
     Raises on any input the kernel does not take; never computes on another
-    path. Adds one to ``msda_windowed_fwd.launches`` per launch."""
-    b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_fwd", value, offsets, weights, radius)
+    path. Adds one to ``msda_windowed_fwd.launches`` per launch, and to
+    ``msda_windowed_fwd.row_halo_launches`` per launch with ``row_halo``."""
+    b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_fwd", value, offsets, weights, radius, row_halo)
     plan = _fwd_plan(w, m, d, p, int(radius), value_align=_value_align(value))
     out = torch.empty((b, c, h, w, m * d), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
@@ -297,18 +327,20 @@ def msda_windowed_fwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     lib = load_library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        err = lib.msda_windowed_fwd_launch(
+        err = lib.msda_windowed_fwd_halo_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), plan.vec, plan.tile_y, plan.tile_x, stream,
+            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, stream,
         )
     if err != 0:
         msg = lib.msda_windowed_fwd_error_string(err).decode()
         raise RuntimeError(f"msda_windowed_fwd launch failed: {msg} (cudaError {err})")
     msda_windowed_fwd.launches += 1
+    msda_windowed_fwd.row_halo_launches += int(row_halo)
     return out
 
 
 msda_windowed_fwd.launches = 0
+msda_windowed_fwd.row_halo_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,6 +351,8 @@ def load_bwd_library() -> ctypes.CDLL:
     lib.msda_windowed_bwd_launch.restype = ctypes.c_int
     lib.msda_windowed_bwd_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_sides_launch.restype = ctypes.c_int
+    lib.msda_windowed_bwd_halo_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_halo_sides_launch.restype = ctypes.c_int
     lib.msda_windowed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -328,21 +362,23 @@ _BWD_SIDES = {"query": 1, "value": 2, "both": 3}
 
 
 def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor, g: torch.Tensor,
-                      radius: int, side: str = "both"):
+                      radius: int, side: str = "both", row_halo: bool = False):
     """Launch the B2 kernel on the forward's staged inputs (bf16 value, f32
     raw offsets and weights) and the f32 cotangent ``g [B, C, H, W, M*D]``,
     all contiguous on one CUDA device -> f32 ``(g_value, g_offsets,
-    g_weights)`` shaped as the inputs. The query side (``g_offsets``,
+    g_weights)`` shaped as the inputs (``g_value`` over the ``H + 2R`` rows
+    of the value with ``row_halo``). The query side (``g_offsets``,
     ``g_weights``) is tiled by :func:`_query_plan`.
 
     ``side`` ``"value"`` or ``"query"`` runs only the kernel of ``g_value`` or
     of ``(g_offsets, g_weights)`` (to time each); the other outputs are then
     left uninitialised. Raises on any input the kernel does not take; never
     computes on another path. Adds one to ``msda_windowed_bwd.launches`` per
-    launch."""
+    launch, and to ``msda_windowed_bwd.row_halo_launches`` per launch with
+    ``row_halo``."""
     if side not in _BWD_SIDES:
         raise ValueError(f"msda_windowed_bwd: side must be one of {sorted(_BWD_SIDES)}, got {side!r}")
-    b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_bwd", value, offsets, weights, radius)
+    b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_bwd", value, offsets, weights, radius, row_halo)
     _check_sizes("msda_windowed_bwd", m, d, radius)
     if g.device != value.device or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError(f"msda_windowed_bwd: g must be contiguous f32 on {value.device}, got {g.dtype} on {g.device}")
@@ -360,19 +396,22 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     lib = load_bwd_library()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        err = lib.msda_windowed_bwd_sides_launch(
+        err = lib.msda_windowed_bwd_halo_sides_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), g.data_ptr(),
             g_value.data_ptr(), g_off.data_ptr(), g_wgt.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), plan.vec, plan.tile_y, plan.tile_x, _BWD_SIDES[side], stream,
+            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, _BWD_SIDES[side],
+            stream,
         )
     if err != 0:
         msg = lib.msda_windowed_bwd_error_string(err).decode()
         raise RuntimeError(f"msda_windowed_bwd launch failed: {msg} (cudaError {err})")
     msda_windowed_bwd.launches += 1
+    msda_windowed_bwd.row_halo_launches += int(row_halo)
     return g_value, g_off, g_wgt
 
 
 msda_windowed_bwd.launches = 0
+msda_windowed_bwd.row_halo_launches = 0
 
 
 class _WindowedAttentionFn(torch.autograd.Function):
@@ -386,16 +425,16 @@ class _WindowedAttentionFn(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, value, offsets, weights, radius):
-        ctx.radius = radius
+    def forward(ctx, value, offsets, weights, radius, row_halo):
+        ctx.radius, ctx.row_halo = radius, row_halo
         ctx.dtypes = (value.dtype, offsets.dtype, weights.dtype)
         if value.device.type == "cuda":
             value = value.to(torch.bfloat16).contiguous()
             offsets = offsets.to(torch.float32).contiguous()
             weights = weights.to(torch.float32).contiguous()
-            out = msda_windowed_fwd(value, offsets, weights, radius)
+            out = msda_windowed_fwd(value, offsets, weights, radius, row_halo=row_halo)
         else:
-            out = ms_deform_attn_windowed(value, offsets, weights, radius, flatten=False)
+            out = ms_deform_attn_windowed(value, offsets, weights, radius, flatten=False, row_halo=row_halo)
         ctx.save_for_backward(value, offsets, weights)
         return out
 
@@ -403,10 +442,11 @@ class _WindowedAttentionFn(torch.autograd.Function):
     def backward(ctx, grad):
         value, offsets, weights = ctx.saved_tensors
         if value.device.type == "cuda":
-            grads = msda_windowed_bwd(value, offsets, weights, grad.to(torch.float32).contiguous(), ctx.radius)
+            grads = msda_windowed_bwd(value, offsets, weights, grad.to(torch.float32).contiguous(), ctx.radius,
+                                      row_halo=ctx.row_halo)
         else:
-            grads = ms_deform_attn_windowed_bwd(value, offsets, weights, grad, ctx.radius)
-        return (*(gr.to(dt) for gr, dt in zip(grads, ctx.dtypes)), None)
+            grads = ms_deform_attn_windowed_bwd(value, offsets, weights, grad, ctx.radius, row_halo=ctx.row_halo)
+        return (*(gr.to(dt) for gr, dt in zip(grads, ctx.dtypes)), None, None)
 
 
 def windowed_attention(value, offsets, weights, radius: int = 4, row_halo: bool = False,
@@ -416,12 +456,11 @@ def windowed_attention(value, offsets, weights, radius: int = 4, row_halo: bool 
 
     A CUDA tensor runs the kernels (B1 forward, B2 backward) on the inputs
     staged as the TPU path stages them; a CPU tensor runs the plain forward
-    and backward on the inputs as given.
+    and backward on the inputs as given. ``row_halo``: the value carries
+    ``+-radius`` halo rows (see the module's docstring).
     """
-    if row_halo:
-        raise NotImplementedError("row_halo (BEV-row sharding) waits for the multi-GPU slice (ROADMAP item A.9)")
     if value.device.type not in ("cuda", "cpu"):
         raise ValueError(f"windowed_attention: unsupported device {value.device}")
-    out = _WindowedAttentionFn.apply(value, offsets, weights, radius)
+    out = _WindowedAttentionFn.apply(value, offsets, weights, radius, bool(row_halo))
     b, c, h, w, k = out.shape
     return out.reshape(b, c * h * w, k) if flatten else out

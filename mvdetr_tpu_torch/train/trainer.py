@@ -11,8 +11,15 @@
 - :class:`Trainer`: the epoch loop over a ``FrameDataset`` (worker threads,
   batches uploaded ahead by :func:`~mvdetr_tpu_torch.data.prefetch.prefetch_to_device`),
   the CLEAR test (`trainer.py:99-169` of the original MVDeTr) and the
-  bitwise determinism check. Its multi-device branches and its heatmap and
-  shadow-figure dumps wait for ROADMAP items A.9 and A.5.
+  bitwise determinism check. Its heatmap and shadow-figure dumps wait for
+  ROADMAP item A.5.
+
+With a ``mesh`` (:mod:`mvdetr_tpu_torch.parallel`) each process is one rank
+of the JAX package's sharded steps (`mvdetr_tpu/train/trainer.py:147-195,
+272-360`): it loads its ``data`` coordinate's frames of every global batch,
+its loss is its share of the global loss, the gradients are summed over
+``data`` in rank order, and the test gathers every rank's detections, so
+every rank reports the same loss and MODA.
 """
 
 from __future__ import annotations
@@ -32,6 +39,11 @@ from mvdetr_tpu_torch.evaluation import clear_metrics
 from mvdetr_tpu_torch.models.layers import set_dropout_generator
 from mvdetr_tpu_torch.models.world_feat.modules import _resize_bilinear
 from mvdetr_tpu_torch.ops import distance_nms, mvdet_decode, top_k
+from mvdetr_tpu_torch.parallel.collectives import (
+    all_gather_list, check_replicated, group_size, reduce_gradients, reduce_sum,
+)
+from mvdetr_tpu_torch.parallel.multihost import process_batch_slice
+from mvdetr_tpu_torch.parallel.sharding import replicate_state
 from mvdetr_tpu_torch.train.optim import schedule_step
 from mvdetr_tpu_torch.utils.profiling import device_trace
 
@@ -45,11 +57,13 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: put(v) for k, v in batch.items()}
 
 
-def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = False):
+def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = False, group=None):
     """Compose the MVDeTr loss (`trainer.py:52-66` of the reference).
     ``outputs`` as the model returns them (NHWC); the batch's ``world_gt`` and
     ``imgs_gt`` as :func:`mvdetr_tpu_torch.data.build_targets` makes them,
-    stacked. Returns ``(loss, aux)``.
+    stacked. Returns ``(loss, aux)``. ``group``: the ``data`` axis's process
+    group, over which every normaliser is taken (:mod:`mvdetr_tpu_torch.losses`):
+    the loss is then this rank's share of the global batch's.
 
     The per-view targets lie on the stride-8 grid of the input. A stride-16
     trunk (VGG-11) gives per-view head maps of half that size, against which
@@ -67,18 +81,33 @@ def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = Fa
         return x.reshape((b * n,) + tuple(x.shape[2:]))
 
     if use_mse:
-        loss = (losses.gaussian_mse_loss(world_heatmap, wgt["heatmap"])
-                + alpha * losses.gaussian_mse_loss(imgs_heatmap, flat(igt["heatmap"])))
+        loss = (losses.gaussian_mse_loss(world_heatmap, wgt["heatmap"], group)
+                + alpha * losses.gaussian_mse_loss(imgs_heatmap, flat(igt["heatmap"]), group))
         return loss, {"loss": loss}
 
-    loss_w_hm = losses.focal_loss(world_heatmap, wgt["heatmap"])
-    loss_w_off = losses.reg_l1_loss(world_offset, wgt["reg_mask"], wgt["idx"], wgt["offset"])
-    loss_img_hm = losses.focal_loss(imgs_heatmap, flat(igt["heatmap"]))
-    loss_img_off = losses.reg_l1_loss(imgs_offset, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["offset"]))
-    loss_img_wh = losses.reg_l1_loss(imgs_wh, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["wh"]))
+    loss_w_hm = losses.focal_loss(world_heatmap, wgt["heatmap"], group=group)
+    loss_w_off = losses.reg_l1_loss(world_offset, wgt["reg_mask"], wgt["idx"], wgt["offset"], group)
+    loss_img_hm = losses.focal_loss(imgs_heatmap, flat(igt["heatmap"]), group=group)
+    loss_img_off = losses.reg_l1_loss(imgs_offset, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["offset"]),
+                                      group)
+    loss_img_wh = losses.reg_l1_loss(imgs_wh, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["wh"]), group)
     loss = loss_w_hm + loss_w_off + (loss_img_hm + loss_img_off + 0.1 * loss_img_wh) / n * alpha
     return loss, {"loss": loss, "w_hm": loss_w_hm, "w_off": loss_w_off, "img_hm": loss_img_hm,
                   "img_off": loss_img_off, "img_wh": loss_img_wh}
+
+
+def global_aux(aux: dict, group) -> dict:
+    """The global batch's ``aux`` from every rank's: the loss terms (each
+    rank's share) summed over ``group`` in rank order, the
+    ``offset_clip_fraction`` (each rank's mean over its frames) averaged."""
+    if group is None or not aux:
+        return aux
+    keys = sorted(aux)
+    total = reduce_sum(torch.stack([aux[k].float() for k in keys]), group)
+    out = dict(zip(keys, total.unbind()))
+    if "offset_clip_fraction" in out:
+        out["offset_clip_fraction"] = out["offset_clip_fraction"] / group_size(group)
+    return out
 
 
 def _model_device(model, device):
@@ -90,7 +119,7 @@ def _model_device(model, device):
 
 
 def train_step(state, batch: dict, generator: torch.Generator, alpha: float = 1.0, use_mse: bool = False,
-               device="cuda"):
+               device="cuda", mesh=None):
     """One training step; returns ``(state, aux)``.
 
     ``state`` is a :class:`~mvdetr_tpu_torch.train.state.TrainState`, updated
@@ -102,18 +131,26 @@ def train_step(state, batch: dict, generator: torch.Generator, alpha: float = 1.
     model's device. ``device`` defaults to the card and must be where the
     model lives. ``aux`` holds the loss, its five terms and the mean
     ``offset_clip_fraction`` of the encoder layers, as device scalars.
+
+    ``mesh``: this rank's step of the sharded step, on its block of the
+    global batch (:func:`mvdetr_tpu_torch.parallel.sharding.make_sharded_train_step`):
+    the loss normalisers and the gradients are summed over the ``data``
+    axis, ``aux`` holds the global batch's values, and the step ends by
+    checking that every rank holds the same parameters.
     """
     model = state.model
     model_dev = _model_device(model, device)
     batch = batch_to_device(batch, model_dev)
+    data_group = None if mesh is None else mesh.group("data")
     was_training = model.training
     model.train()
     set_dropout_generator(model, generator)
     try:
         state.optimizer.zero_grad(set_to_none=True)
         outputs, clips = model(batch["imgs"], batch["affine_mats"])
-        loss, aux = supervised_loss(outputs, batch, alpha, use_mse)
+        loss, aux = supervised_loss(outputs, batch, alpha, use_mse, data_group)
         loss.backward()
+        reduce_gradients(model, data_group)
         state.optimizer.step()
         schedule_step(state.scheduler)
         state.step += 1
@@ -123,6 +160,9 @@ def train_step(state, batch: dict, generator: torch.Generator, alpha: float = 1.
     aux = {k: v.detach() for k, v in aux.items()}
     if clips:
         aux["offset_clip_fraction"] = torch.stack(clips).mean().detach()
+    if mesh is not None:
+        aux = global_aux(aux, data_group)
+        check_replicated(model, mesh.world_group)
     return state, aux
 
 
@@ -141,7 +181,7 @@ def decode_detections(world_heatmap: torch.Tensor, world_offset: torch.Tensor, w
 
 @torch.inference_mode()
 def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 512, nms_dist: float = 20.0,
-              alpha: float = 1.0, use_mse: bool = False, device="cuda"):
+              alpha: float = 1.0, use_mse: bool = False, device="cuda", mesh=None):
     """Serve one batch of frame sets, with the model in eval mode.
 
     ``batch``: ``{"imgs": [B, N, H, W, 3] uint8, "affine_mats": [B, N, 3, 3]}``
@@ -151,6 +191,11 @@ def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 5
     ``offset_clip_fraction`` (the mean over encoder layers of the share of
     offsets the windowed clamp binds) and, when the batch carries targets,
     the loss and its terms (`trainer.py:114`).
+
+    ``mesh``: this rank's part of the sharded eval step, on its block of a
+    global batch: ``aux`` holds the global batch's values and ``xys`` and
+    ``keep`` every rank's blocks, gathered over ``data`` in rank order, so
+    every rank returns the same outputs.
     """
     model_dev = _model_device(model, device)
     batch = batch_to_device(batch, model_dev)
@@ -160,13 +205,18 @@ def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 5
         outputs, clips = model(batch["imgs"], batch["affine_mats"])
     finally:
         model.train(was_training)
+    data_group = None if mesh is None else mesh.group("data")
     aux = {}
     if "world_gt" in batch and "imgs_gt" in batch:
-        aux = supervised_loss(outputs, batch, alpha, use_mse)[1]
+        aux = supervised_loss(outputs, batch, alpha, use_mse, data_group)[1]
     if clips:
         aux["offset_clip_fraction"] = torch.stack(clips).mean()
     (world_heatmap, world_offset), _ = outputs
     xys, keep = decode_detections(world_heatmap, world_offset, world_reduce, num_candidates, nms_dist)
+    if data_group is not None:
+        aux = global_aux(aux, data_group)
+        xys = torch.cat(all_gather_list(xys, data_group))
+        keep = torch.cat(all_gather_list(keep.to(torch.uint8), data_group)).bool()  # gloo gathers no bool
     return aux, xys, keep
 
 
@@ -197,11 +247,19 @@ class Trainer:
     masks as one that never stopped. ``profile_dir``: a ``torch.profiler``
     trace of steps 2-4 of epoch 1 (step 1 builds the kernels and warms the
     allocator) lands there.
+
+    ``mesh``: this process's rank of a sharded run (the model built with the
+    same mesh). The state is broadcast from rank 0, every rank loads its
+    ``data`` coordinate's frames of each global batch and takes the sharded
+    steps (:mod:`mvdetr_tpu_torch.parallel.sharding`), and the test gathers
+    every rank's detections; only rank 0 writes ``res_fpath``. Every rank
+    draws the same dropout generator, and its masks are its block of the
+    one-process step's.
     """
 
     def __init__(self, state, dataset_train, dataset_test, cls_thres: float = 0.4, alpha: float = 1.0,
                  use_mse: bool = False, nms_top_k: int = 512, logger=print, num_workers: int = 0,
-                 profile_dir: Optional[str] = None, seed: int = 2021):
+                 profile_dir: Optional[str] = None, seed: int = 2021, mesh=None):
         self.state = state
         self.train_set = dataset_train
         self.test_set = dataset_test
@@ -214,6 +272,9 @@ class Trainer:
         self.profile_dir = profile_dir
         self.seed = seed
         self.device = next(state.model.parameters()).device
+        self.mesh = mesh
+        if mesh is not None:
+            replicate_state(state, mesh)
 
     def step_generator(self, step: int) -> torch.Generator:
         """The dropout generator of train step ``step``."""
@@ -221,13 +282,20 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _batches(self, batch_size: int):
-        """Worker-assembled host train batches, uploaded ahead of the step."""
-        it = self.train_set.batches(batch_size, num_workers=self.num_workers)
+        """Worker-assembled host train batches (this rank's frames of each
+        global batch), uploaded ahead of the step."""
+        it = self.train_set.batches(batch_size, num_workers=self.num_workers,
+                                    local_slice=process_batch_slice(batch_size, self.mesh))
         return prefetch_to_device(it, self.device)
 
     def _train_step(self, batch):
         return train_step(self.state, batch, self.step_generator(self.state.step), self.alpha, self.use_mse,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
+
+    def _eval_step(self, batch):
+        return eval_step(self.state.model, batch, world_reduce=self.test_set.world_reduce,
+                         num_candidates=self.nms_top_k, alpha=self.alpha, use_mse=self.use_mse, device=self.device,
+                         mesh=self.mesh)
 
     def check_determinism(self, batch_size: int = 1) -> None:
         """Run the first train step twice from the same state, batch and
@@ -304,23 +372,43 @@ class Trainer:
     def test(self, batch_size: int = 1, res_fpath: Optional[str] = None):
         """Evaluate the test split: loss, detections (written to
         ``res_fpath`` as ``%d`` rows) and CLEAR ``(loss, moda, modp,
-        precision, recall)``."""
+        precision, recall)``. On a mesh with a ``data`` axis each rank
+        evaluates its frames of every full global batch and the ragged tail
+        is padded with repeats of its last frame (`mvdetr_tpu/train/trainer.py:
+        320-345`: the padded rows emit nothing, and the tail's loss, the mean
+        over the padded batch, is weighted by the tail's share)."""
         t0 = time.time()
         total, count, aux = 0.0, 0, {}
         rows, cap_hits = [], 0
         indexing_ij = self.train_set.rig.indexing == "ij"
-        host_batches = self.test_set.batches(batch_size, shuffle=False, drop_last=False,
-                                             num_workers=self.num_workers)
-        for batch in prefetch_to_device(host_batches, self.device):
-            aux, xys, keep = eval_step(self.state.model, batch, world_reduce=self.test_set.world_reduce,
-                                       num_candidates=self.nms_top_k, alpha=self.alpha, use_mse=self.use_mse,
-                                       device=self.device)
-            total += float(aux["loss"])
-            count += 1
-            new_rows, hits = detection_rows(xys.cpu().numpy(), keep.cpu().numpy(), np.asarray(batch["frame"]),
-                                            self.cls_thres, indexing_ij)
+
+        def emit(xys, keep, frames):
+            nonlocal rows, cap_hits
+            new_rows, hits = detection_rows(xys.cpu().numpy(), keep.cpu().numpy(), frames, self.cls_thres,
+                                            indexing_ij)
             rows += new_rows
             cap_hits += hits
+
+        data = 1 if self.mesh is None else self.mesh.shape["data"]
+        local = process_batch_slice(batch_size, self.mesh)
+        host_batches = self.test_set.batches(batch_size, shuffle=False, drop_last=data > 1,
+                                             num_workers=self.num_workers, local_slice=local)
+        frames = [int(f) for f in self.test_set.frames]
+        for bi, batch in enumerate(prefetch_to_device(host_batches, self.device)):
+            aux, xys, keep = self._eval_step(batch)
+            total += float(aux["loss"])
+            count += 1
+            emit(xys, keep, frames[bi * batch_size:(bi + 1) * batch_size] if data > 1 else np.asarray(batch["frame"]))
+        tail = list(range(len(frames) - len(frames) % batch_size, len(frames))) if data > 1 else []
+        if tail:
+            from mvdetr_tpu_torch.data.dataset import collate
+
+            padded = tail + [tail[-1]] * (batch_size - len(tail))
+            batch = batch_to_device(collate([self.test_set[i] for i in padded[local]]), self.device)
+            aux, xys, keep = self._eval_step(batch)
+            total += float(aux["loss"]) * len(tail) / batch_size
+            count += len(tail) / batch_size
+            emit(xys[:len(tail)], keep[:len(tail)], [frames[i] for i in tail])
 
         if cap_hits:
             self.log(
@@ -336,7 +424,7 @@ class Trainer:
                     "at eval — results may diverge from reference-exact semantics; raise --attn_radius."
                 )
         det = np.asarray(rows, dtype=np.float64).reshape(-1, 3)
-        if res_fpath is not None:
+        if res_fpath is not None and (self.mesh is None or self.mesh.rank == 0):
             np.savetxt(res_fpath, det, "%d")
         gt = self.test_set.gt_array()
         # CLEAR matches on the integer-truncated rows as written to test.txt

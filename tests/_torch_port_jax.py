@@ -76,10 +76,14 @@ def to_target_grid(outputs, batch):
     return world, imgs
 
 
-def jax_loss_and_grads(jax_model, variables, batch):
+def jax_loss_and_grads(jax_model, variables, batch, mesh=None):
     """The JAX loss terms and gradients of one training-mode forward (no
     dropout rng is consumed at rate 0), with the parameters in f64 under
-    ``jax.enable_x64`` (the uint8 frames are still normalised in f32).
+    ``jax.enable_x64`` (the uint8 frames are still normalised in f32). With
+    a JAX ``mesh`` the batch is sharded over it as the JAX package's sharded
+    step shards it (``mvdetr_tpu.parallel.shard_batch``: the frames over
+    ``data``) and the parameters replicated, so XLA takes BatchNorm's
+    statistics and the loss over the global batch through its collectives.
 
     Why f64: JAX's own f32 gradients on the CPU lose precision in the
     trunk's dilated stages. On ``test_torch_port_variants.py``'s conv
@@ -90,6 +94,10 @@ def jax_loss_and_grads(jax_model, variables, batch):
     with jax.enable_x64():
         jbatch = jax.tree.map(jnp.asarray, batch)
         var64 = jax.tree.map(lambda a: np.asarray(a, np.float64), variables)
+        if mesh is not None:
+            from mvdetr_tpu.parallel.sharding import replicated, shard_batch
+
+            jbatch, var64 = shard_batch(batch, mesh), jax.device_put(var64, replicated(mesh))
 
         def loss_fn(params):
             outputs, _ = jax_model.apply({"params": params, "batch_stats": var64["batch_stats"]}, jbatch["imgs"],

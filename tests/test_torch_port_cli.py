@@ -9,7 +9,9 @@
   the saved step, appending to the log; ``--resume`` reloads and tests;
 - every flag whose feature is not ported raises before any work, and so does
   the default device without a card; the fusion variants, VGG-11 and
-  ``--remat_backbone`` each run a tiny epoch.
+  ``--remat_backbone`` each run a tiny epoch;
+- the sharding and multi-process flags on one process resolve or fail up
+  front.
 
 Each run restores ``sys.stdout`` after the CLI's tee.
 """
@@ -89,15 +91,34 @@ def test_epochs_per_process_then_resume_train_continues(tmp_path, monkeypatch):
         assert torch.equal(third.state.model.state_dict()[key], value), key
 
 
-@pytest.mark.parametrize("flags", [
-    ["--view_shards", "2"], ["--bev_shards", "2"], ["--num_processes", "2"], ["--coordinator_address", "h:1"],
-    ["--visualize"],
-])
+@pytest.mark.parametrize("flags", [["--view_shards", "2"], ["--visualize"]])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         _run(TINY + flags)
     assert list(tmp_path.iterdir()) == []  # no logdir, no build, nothing
+
+
+@pytest.mark.parametrize("flags, error", [
+    (["--bev_shards", "2"], "1 process\\(es\\) do not form the mesh data=1 x view=1 x bev=2 .*--num_processes 2"),
+    (["--num_processes", "2"], "--num_processes 2 needs --process_id and --coordinator_address"),
+    (["--coordinator_address", "h:1"], None),
+], ids=["bev_shards", "num_processes", "coordinator_address"])
+def test_multi_process_flags_on_one_process(flags, error, tmp_path, monkeypatch):
+    """The sharding and multi-process flags in a single process: a mesh that
+    needs more processes than the run has, and a process count without the
+    rank and rendezvous, fail before any work; a coordinator address alone is
+    ignored, as in the JAX CLI, and a tiny epoch runs unsharded. Two
+    processes are run by tests/test_torch_port_parallel.py."""
+    monkeypatch.chdir(tmp_path)
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            _run(TINY + flags)
+        assert list(tmp_path.iterdir()) == []
+        return
+    trainer = _run(TINY + flags + ["--epochs", "1", "--logdir", str(tmp_path / "run")])
+    assert trainer.mesh is None and trainer.state.step == 2
+    assert "Test: loss" in (tmp_path / "run" / "log.txt").read_text()
 
 
 @pytest.mark.parametrize("flags", [

@@ -521,3 +521,40 @@ def test_variant_models_launch_their_kernels_on_card(config, cuda_device):
     assert runs[0][0] == runs[1][0]
     for n, p in runs[0][1].items():
         assert torch.equal(p, runs[1][1][n]), n
+
+
+@pytest.mark.parametrize("radius,m,d,hw", [(4, 8, 16, (9, 21)), (1, 2, 16, (37, 101)), (3, 2, 5, (9, 21)),
+                                           (8, 2, 8, (12, 30))])
+def test_row_halo_kernels_on_card(radius, m, d, hw, rng, cuda_device):
+    """B1 and B2 in row_halo mode (the value H + 2R rows) against their plain
+    versions on the same bf16 value: atol 2e-5 and 1e-4 of scale, as the
+    zero-padded cases; two launches bitwise equal. Zero halo rows give the
+    zero-padded launches' bits (B2's g_value on the inner rows), and three
+    BEV shards composed (``compose_bev_shards``) give the unsharded output's."""
+    from mvdetr_tpu_torch.ops.msda_sharded import compose_bev_shards
+
+    h, wd = hw
+    value, off, wgt = windowed_inputs(rng, 2, 3, h + 2 * radius, wd, m, d, 4, 3, -radius - 1.5, radius + 1.5)
+    v = torch.from_numpy(value).to(cuda_device, torch.bfloat16)
+    o = torch.from_numpy(off[:, :, :h]).contiguous().to(cuda_device)
+    w = torch.from_numpy(wgt[:, :, :h]).contiguous().to(cuda_device)
+    g = torch.randn((2, 3, h, wd, m * d), generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    out = msda_windowed_fwd(v, o, w, radius, row_halo=True)
+    torch.testing.assert_close(out, ms_deform_attn_windowed(v, o, w, radius, flatten=False, row_halo=True),
+                               rtol=0, atol=2e-5)
+    assert torch.equal(out, msda_windowed_fwd(v, o, w, radius, row_halo=True))
+    grads = msda_windowed_bwd(v, o, w, g, radius, row_halo=True)
+    assert grads[0].shape == v.shape
+    for got, ref, again in zip(grads, ms_deform_attn_windowed_bwd(v, o, w, g, radius, row_halo=True),
+                               msda_windowed_bwd(v, o, w, g, radius, row_halo=True)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * max(1.0, float(ref.abs().max())))
+        assert torch.equal(got, again)
+
+    inner = v[:, :, radius:radius + h].contiguous()
+    zero = torch.nn.functional.pad(inner, (0, 0, 0, 0, 0, 0, radius, radius))
+    assert torch.equal(msda_windowed_fwd(zero, o, w, radius, row_halo=True), msda_windowed_fwd(inner, o, w, radius))
+    padded, halo = msda_windowed_bwd(inner, o, w, g, radius), msda_windowed_bwd(zero, o, w, g, radius, row_halo=True)
+    assert torch.equal(halo[0][:, :, radius:radius + h], padded[0])
+    assert torch.equal(halo[1], padded[1]) and torch.equal(halo[2], padded[2])
+    if h % 3 == 0 and h // 3 >= radius:
+        assert torch.equal(compose_bev_shards(inner, o, w, 3, radius), msda_windowed_fwd(inner, o, w, radius))

@@ -105,7 +105,15 @@ def test_dispatch_on_cpu_runs_the_plain_version(rng):
     out = windowed_attention(tv, to, tw, radius=2)
     assert out.shape == (1, 2 * 4 * 6, 8) and out.dtype == torch.float32
     torch.testing.assert_close(out, ms_deform_attn_windowed(tv, to, tw, 2), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # row_halo: the value carries 2 real rows above and below the 4 query rows
+    halo = torch.from_numpy(rng.standard_normal((1, 2, 8, 6, 2, 4)).astype(np.float32))
+    out_halo = windowed_attention(halo, to, tw, radius=2, row_halo=True)
+    assert out_halo.shape == (1, 2 * 4 * 6, 8)
+    torch.testing.assert_close(out_halo, ms_deform_attn_windowed(halo, to, tw, 2, row_halo=True), rtol=0, atol=0)
+    # zero halo rows give the zero-padded call's values
+    zero_halo = torch.nn.functional.pad(tv, (0, 0, 0, 0, 0, 0, 2, 2))
+    assert torch.equal(windowed_attention(zero_halo, to, tw, radius=2, row_halo=True), out)
+    with pytest.raises(ValueError, match="row_halo=True needs 8"):
         windowed_attention(tv, to, tw, radius=2, row_halo=True)
 
 
