@@ -35,6 +35,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    one shard of each timed beside its bound; then the counted run,
    ``compose_bev_shards`` over 2 shards through autograd (B1 and B2 once a
    shard, in halo mode);
+3c. camera sharding's kernels (``view_phase``), the view ranks composed in
+   one process at the flagship's width: 7 cameras over 7 ranks and a
+   6-camera rig over 2 and 3; B1 on each rank's query blocks over all the
+   levels bitwise the unsharded kernel's blocks, B2's g_offsets and
+   g_weights bitwise, its g_value summed over the ranks in rank order within
+   VIEW_GV_ATOL; B3 on each rank's cameras bitwise the unsharded camera
+   slices; one rank of each timed beside its bound; then the counted run,
+   path ``composed_view_shards``: the 7 ranks' attention and warp through
+   autograd, B1, B2 and B3 once a rank;
 4. B3, the warp backward, against its plain version at the flagship shape
    (g [14, 43200, 128] bf16 at the coordinates of the bench rig's homographies
    with non-identity augmentation affines; its segment statistics printed),
@@ -124,6 +133,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    one epoch and a test of the recipe's scene giving the same loss and
    MODA; a second GPU, and with it the exchange between ranks, is not
    there;
+8f. the ``--visualize`` captures (``visualize_phase``): at a small size the
+   card against the CPU in windowed, warped and gather mode (every layer's
+   sampling locations and weights, the forward stages); at full width both
+   captures counted (B1 3 times each); the CLI recipe for one epoch with
+   ``--visualize`` (the figures written, or the line saying they were
+   skipped without matplotlib);
 9. B3's device time at the flagship by stage and by device activity, from
    torch.profiler after the serve and train profiles: all but one memset of
    its sort must be kernels named ``warp_bwd``, and B3's share of the step
@@ -159,7 +174,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     trainer, experiment, shadow: the n_points-8 serve, train and recipe
     runs, gather and aio: their serve and train runs, checkpoint: the
     checkpoint evaluations; each variant's serve, train and cli runs; nccl:
-    the one-rank NCCL steps), B1 and B2's ``row_halo`` launches as rows of
+    the one-rank NCCL steps; composed_view_shards: the one-process
+    composition of 7 view ranks; visualize: the full-width captures), one
+    view rank's times by cameras and ranks (``view_rank``), B1 and B2's
+    ``row_halo`` launches as rows of
     their own (``<name>:row_halo``: one shard of 2 at the flagship shape,
     4 and 6 shards under ``by_shards``, launches from the counted
     one-process composition, path ``composed_bev_shards``),
@@ -205,6 +223,12 @@ LANE_RTOL = 1e-5  # B5, of max|ref|: 81 f32 sums that differ only by FMA contrac
 ROW_HALO_ATOL = 1e-5
 ROW_HALO_SHARDS = (2, 4, 6)  # BEV shards of the flagship's 60 encoder rows: 30, 15 and 10 rows, each >= R = 4
 ROW_HALO_ATTENTION = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4, r=4)  # the flagship's attention (C = L cameras)
+# camera sharding: (cameras, view shards) at the flagship's width; 7 cameras divide only over 7 view ranks
+VIEW_CASES = ((7, 7), (6, 2), (6, 3))
+# B2's g_value summed over the view ranks in rank order against the unsharded kernel's (of max(1, max|ref|)): each
+# value tap's gradient sums the samples of every query block that reaches it, ~C*P*M terms of order 0.01 at the
+# flagship shape, regrouped into V partial sums: a few f32 ulps of the sum
+VIEW_GV_ATOL = 1e-5
 LR, TOTAL_STEPS = 5e-4, 100
 # medians measured on an H100 80GB HBM3 at 700 W while the BEV upsample was F.interpolate (PERF.md)
 INTERP_SERVE_MS, INTERP_TRAIN_MS = 62.37, 246.25
@@ -248,13 +272,14 @@ def perturb_attention(model, seed: int, scale: float = 0.05) -> None:
                 p.copy_(torch.randn(p.shape, generator=g) * scale)
 
 
-def bench_rig():
+def bench_rig(num_cam=7):
     """The rig of bench.py: 1080x1920 frames (720x1280 input at img_reduce=12),
-    a 480x1440 grid (120x360 BEV at world_reduce=4, 60x180 encoder grid)."""
+    a 480x1440 grid (120x360 BEV at world_reduce=4, 60x180 encoder grid);
+    ``num_cam`` cameras (7 as Wildtrack's)."""
     from mvdetr_tpu_torch.geometry import make_synthetic_rig
 
     return make_synthetic_rig(
-        num_cam=7, img_shape=(1080, 1920), worldgrid_shape=(480, 1440),
+        num_cam=num_cam, img_shape=(1080, 1920), worldgrid_shape=(480, 1440),
         cell_meters=0.025, indexing="ij", worldcoord_unit=0.01, origin_offset=(-300.0, -900.0),
         camera_height_m=6.0, camera_margin_m=4.0, name="BenchWildtrack",
     )
@@ -566,6 +591,142 @@ def row_halo_phase(rng) -> dict:
                             "bwd": cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, r), 10)}
     print(f"row_halo: the unsharded kernels at the same shape in this run: B1 {recs['unsharded_ms']['fwd']:.4f} ms, "
           f"B2 {recs['unsharded_ms']['bwd']:.4f} ms")
+    return recs
+
+
+def view_phase(rng) -> dict:
+    """Camera sharding's kernels, the view ranks composed in one process, at
+    the flagship's attention shape (B=2, 60x180, M=8, D=16, P=4, R=4, bf16
+    value, random offsets past the clamp) and its warp, for each (cameras,
+    V) of VIEW_CASES (7 cameras over 7 ranks; a 6-camera rig of the same
+    width over 2 and 3):
+
+    - B1 on each rank's C = N / V query blocks over all N levels: bitwise the
+      unsharded kernel's blocks; B2 there: g_offsets and g_weights bitwise the
+      unsharded blocks, g_value summed over the ranks in rank order within
+      VIEW_GV_ATOL of the unsharded one;
+    - B3 on each rank's cameras' rows of g (the bench rig's homographies under
+      a train batch's affines, bf16 g [B*N, 21600, 128]): bitwise the
+      unsharded kernel's camera slices;
+    - one rank's B1, B2 and B3 timed beside their bounds and plain versions;
+    - the counted run at 7 ranks (``composed_view_shards``): every rank's
+      attention through autograd (``windowed_attention`` on its query blocks,
+      one value leaf) and its cameras' warp (the warp's sampling function on
+      its rows of the feature map, B3 as backward), forward and backward,
+      with every count set to 0 just before and read just after: B1, B2 and
+      B3 once a rank, the results as above.
+    Returns the records of the kernel line."""
+    import torch
+
+    from mvdetr_tpu_torch.ops.msda_windowed import (
+        ms_deform_attn_windowed, ms_deform_attn_windowed_bwd, msda_windowed_bwd, msda_windowed_fwd,
+        windowed_attention,
+    )
+    from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
+    from mvdetr_tpu_torch.ops.warp import _PatchSampleFn, warp_bwd
+
+    b, h, w, m, d, p, r = (ROW_HALO_ATTENTION[k] for k in "bhwmdpr")
+    recs = {"by_shards": {}}
+    for cams, views in VIEW_CASES:
+        per = cams // views
+        v, o, wg = attention_inputs(rng, b, cams, h, w, m, d, p, r, integer=False)
+        g = torch.from_numpy(rng.standard_normal((b, cams, h, w, m * d), dtype=np.float32)).cuda()
+        out_full = msda_windowed_fwd(v, o, wg, r)
+        gv_full, go_full, gw_full = msda_windowed_bwd(v, o, wg, g, r)
+        rig = bench_rig(cams)
+        warp = warp_flagship_inputs(rng, rig, train_batch(rig, b, world_reduce=4, img_reduce=12, seed=1))
+        b3_full = warp_bwd(warp["g"], warp["sx"], warp["sy"], warp["h"], warp["w"])
+        gv_sum = None
+        for j in range(views):
+            blk = slice(j * per, (j + 1) * per)
+            oj, wj, gj = (t[:, blk].contiguous() for t in (o, wg, g))
+            out = msda_windowed_fwd(v, oj, wj, r)
+            gv, go, gw = msda_windowed_bwd(v, oj, wj, gj, r)
+            rows = torch.tensor([i * cams + c for i in range(b) for c in range(j * per, (j + 1) * per)], device="cuda")
+            wj_args = [warp[k].index_select(0, rows).contiguous() for k in ("g", "sx", "sy")]
+            b3 = warp_bwd(*wj_args, warp["h"], warp["w"])
+            torch.cuda.synchronize()
+            check(torch.equal(out, out_full[:, blk]), f"view {cams}/{views} rank {j}: B1 differs from the unsharded "
+                  "kernel's query blocks")
+            check(torch.equal(go, go_full[:, blk]) and torch.equal(gw, gw_full[:, blk]),
+                  f"view {cams}/{views} rank {j}: B2's g_offsets or g_weights differ from the unsharded blocks")
+            check(torch.equal(b3, b3_full.index_select(0, rows)), f"view {cams}/{views} rank {j}: B3 differs from "
+                  "the unsharded kernel's camera slices")
+            gv_sum = gv.clone() if gv_sum is None else gv_sum.add_(gv)
+            if j == 0:  # one rank timed: every rank has the same shapes
+                fwd_bytes = v.numel() * 2 + (oj.numel() + wj.numel() + out.numel()) * 4
+                bwd_bytes = v.numel() * 2 + (oj.numel() + wj.numel() + gj.numel() + gv.numel() + go.numel()
+                                             + gw.numel()) * 4
+                wg_, wsx, wsy = wj_args
+                b3_bytes = (wg_.numel() + b3.numel()) * wg_.element_size() + (wsx.numel() + wsy.numel()) * 4
+                rank = {"fwd": bound(fwd_bytes, 10 * out.numel() * cams * p),
+                        "bwd": bound(bwd_bytes, BWD_FLOP_PER_SAMPLE_CHANNEL * wj.numel() * d),
+                        "b3": bound(b3_bytes, 3 * 4 * wg_.numel())}
+                rank["fwd"].update(ms=cuda_ms(lambda: msda_windowed_fwd(v, oj, wj, r), 20),
+                                   plain_ms=cuda_ms(lambda: ms_deform_attn_windowed(v, oj, wj, r, flatten=False), 3))
+                rank["bwd"].update(ms=cuda_ms(lambda: msda_windowed_bwd(v, oj, wj, gj, r), 10),
+                                   plain_ms=cuda_ms(lambda: ms_deform_attn_windowed_bwd(v, oj, wj, gj, r), 2))
+                rank["b3"].update(ms=cuda_ms(lambda: warp_bwd(*wj_args, warp["h"], warp["w"]), 20),
+                                  plain_ms=cuda_ms(lambda: bilinear_scatter_matmul(*wj_args, warp["h"], warp["w"]),
+                                                   3),
+                                  library_ms=grid_sampler_backward_ms(*wj_args, warp["h"], warp["w"],
+                                                                      warp["bev_hw"])[0])
+        gv_err, gv_scale = float((gv_sum - gv_full).abs().max()), float(gv_full.abs().max())
+        check(gv_err <= VIEW_GV_ATOL * max(1.0, gv_scale), f"view {cams}/{views}: g_value summed over the ranks "
+              f"differs by {gv_err} (scale {gv_scale})")
+        unsharded = {"fwd": cuda_ms(lambda: msda_windowed_fwd(v, o, wg, r), 20),
+                     "bwd": cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, r), 10),
+                     "b3": cuda_ms(lambda: warp_bwd(warp["g"], warp["sx"], warp["sy"], warp["h"], warp["w"]), 20)}
+        for key in rank:
+            rank[key]["unsharded_ms"] = unsharded[key]
+        recs["by_shards"][f"{cams}/{views}"] = dict(rank, cameras_per_rank=per, g_value_err=gv_err)
+        print(f"view {cams} cameras over {views} ranks ({per} a rank): B1 and B2 on every rank's {per} query "
+              f"block(s) over {cams} levels bitwise the unsharded blocks (output, g_offsets, g_weights), g_value "
+              f"summed in rank order within {gv_err:.3e} (max |ref| {gv_scale:.3f}, bound "
+              f"{VIEW_GV_ATOL * max(1.0, gv_scale):.3e}); B3 on every rank's {b * per} camera rows bitwise the "
+              f"unsharded slices; one rank: B1 {rank['fwd']['ms']:.4f} ms (bound {rank['fwd']['bound_ms']:.4f}, "
+              f"plain {rank['fwd']['plain_ms']:.3f}, unsharded {unsharded['fwd']:.4f}), B2 {rank['bwd']['ms']:.4f} "
+              f"ms (bound {rank['bwd']['bound_ms']:.4f}, plain {rank['bwd']['plain_ms']:.3f}, unsharded "
+              f"{unsharded['bwd']:.4f}), B3 {rank['b3']['ms']:.4f} ms (bound {rank['b3']['bound_ms']:.4f}, plain "
+              f"{rank['b3']['plain_ms']:.3f}, grid_sampler_2d_backward {rank['b3']['library_ms']:.4f}, unsharded "
+              f"{unsharded['b3']:.4f}); {torch.cuda.get_device_name(0)}")
+        if (cams, views) == VIEW_CASES[0]:
+            counted = (v, o, wg, g, out_full, gv_full, go_full, gw_full, warp, b3_full)
+
+    # the counted run: the 7 ranks composed through autograd, each rank's attention and its cameras' warp
+    v, o, wg, g, out_full, gv_full, go_full, gw_full, warp, b3_full = counted
+    cams, views = VIEW_CASES[0]
+    per = cams // views
+    wrappers = main_path_launches()
+    feats = torch.from_numpy(rng.standard_normal((b * cams, warp["h"], warp["w"], warp["g"].shape[2]),
+                                                 dtype=np.float32)).cuda().to(warp["g"].dtype).requires_grad_()
+    leaves = [v.float().requires_grad_(), o.clone().requires_grad_(), wg.clone().requires_grad_()]
+    rows = [torch.tensor([i * cams + c for i in range(b) for c in range(j * per, (j + 1) * per)], device="cuda")
+            for j in range(views)]
+    for fn in wrappers.values():
+        fn.launches = 0
+    outs, warped = [], []
+    for j in range(views):
+        blk = slice(j * per, (j + 1) * per)
+        outs.append(windowed_attention(leaves[0], leaves[1][:, blk], leaves[2][:, blk], r, flatten=False))
+        warped.append(_PatchSampleFn.apply(feats.index_select(0, rows[j]), warp["sx"].index_select(0, rows[j]),
+                                           warp["sy"].index_select(0, rows[j])))
+    out = torch.cat(outs, dim=1)
+    torch.autograd.backward([out] + warped, [g] + [warp["g"].index_select(0, rows[j]) for j in range(views)])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"view counted run (composed_view_shards: {views} ranks' attention and warp, forward and backward): "
+          f"launches {launches}")
+    check(launches == {name: views for name in wrappers}, f"view counted run: launches {launches}")
+    check(torch.equal(out, out_full), "view counted run: the output differs from the unsharded kernel's")
+    check(torch.equal(leaves[1].grad, go_full) and torch.equal(leaves[2].grad, gw_full),
+          "view counted run: g_offsets or g_weights differ from the unsharded kernel's")
+    err = float((leaves[0].grad - gv_full).abs().max())
+    check(err <= VIEW_GV_ATOL * max(1.0, float(gv_full.abs().max())), f"view counted run: g_value error {err}")
+    check(torch.equal(feats.grad, b3_full), "view counted run: the warp's input gradient differs from the "
+          "unsharded B3's")
+    recs["launches"] = launches
+    recs["g_value_err"] = err
     return recs
 
 
@@ -1706,6 +1867,7 @@ def nccl_phase(rig, batch) -> dict:
 RECIPE = ["-d", "synthetic", "--epochs", "10", "--synthetic_frames", "12", "--augmentation", "true", "--world_feat",
           "deform_trans", "--lr", "1e-3", "--cls_thres", "0.4", "-j", "4", "--deterministic", "true"]
 RECIPE_MODA = 80.0
+VISUALIZE_RECIPE = RECIPE[:-2] + ["--epochs", "1", "--visualize"]  # without the determinism check
 # the same recipe with the 8-point shadow reference maps (warped attention); its MODA gate is the JAX package's
 # figure for --n_points 8 in its verify notes (SKILL.md)
 RECIPE_SHADOW = RECIPE + ["--n_points", "8"]
@@ -1940,10 +2102,95 @@ def counted_run(label, probe, fn, per_step=(3, 3, 1), per_eval=(3, 0, 0), trains
     return out, launches
 
 
-def run_cli(argv, trains=True):
+def visualize_phase(rig) -> dict:
+    """The ``--visualize`` captures (``utils/visualize.py``): at a small size
+    (3 cameras, f32, TF32 off) the card against the CPU from the same
+    weights, in windowed (4 points), warped (8) and gather mode: every
+    layer's sampling locations and attention weights and the three forward
+    stages within SMALL_MODEL_RTOL of scale (the card stages the attention
+    value in bf16); at full width (the flagship model, bf16, one frame set of
+    the bench rig) both captures with every count set to 0 just before and
+    read just after: B1 three times in each (one forward), B2 and B3 none,
+    the shapes JAX's captures give and finite values; then the CLI recipe for
+    one epoch with ``--visualize``, whose test writes the figures or, without
+    matplotlib, says which it skipped. Returns the counted run's launches."""
+    import torch
+
+    from mvdetr_tpu_torch.geometry import make_synthetic_rig
+    from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.utils.visualize import capture_attention, capture_forward_stages
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    small = make_synthetic_rig(num_cam=3, img_shape=(96, 160), worldgrid_shape=(48, 96))
+    batch = train_batch(small, 1, world_reduce=2, img_reduce=12, seed=3)
+    for mode, kw in (("windowed", {}), ("warped", dict(n_points=8)), ("gather", dict(attn_mode="gather"))):
+        cpu_model = MVDeTr.from_rig(small, world_reduce=2, img_reduce=12, device="cpu", seed=1, **kw)
+        perturb_attention(cpu_model, seed=2)
+        card_model = copy.deepcopy(cpu_model).cuda()
+        check(card_model.world_feat.mode == mode, f"visualize small: mode {card_model.world_feat.mode}")
+        (_, ref), (_, out) = capture_attention(cpu_model, batch), capture_attention(card_model, batch)
+        (_, ref_st), (_, out_st) = capture_forward_stages(cpu_model, batch), capture_forward_stages(card_model, batch)
+        pairs = [(f"layer {i} {k}", a[k], c[k]) for i, (a, c) in enumerate(zip(ref, out)) for k in a]
+        pairs += [(f"stage {k}", ref_st[k], out_st[k]) for k in ref_st]
+        check(len(ref) == len(out) == 3 and ref_st.keys() == out_st.keys(), f"visualize small {mode}: structures")
+        worst = 0.0
+        for name, a, c in pairs:
+            check(a.shape == c.shape, f"visualize small {mode} {name}: shapes {a.shape}, {c.shape}")
+            err = float(np.abs(c - a).max()) / max(1.0, float(np.abs(a).max()))
+            check(err <= SMALL_MODEL_RTOL, f"visualize small {mode} {name}: card and CPU differ by {err} of scale")
+            worst = max(worst, err)
+        print(f"visualize small {mode} f32 card vs cpu: capture_attention (3 layers, sampling locations "
+              f"{tuple(out[0]['sampling_locations'].shape)}) and capture_forward_stages ({', '.join(out_st)}) within "
+              f"{worst:.3e} of scale (bound {SMALL_MODEL_RTOL})")
+        del cpu_model, card_model
+    torch.backends.cudnn.allow_tf32 = saved[0]
+    torch.set_float32_matmul_precision(saved[1])
+
+    model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
+                            device="cuda", seed=0)
+    perturb_attention(model, seed=1)
+    full = train_batch(rig, 1, world_reduce=4, img_reduce=12, seed=2)
+    wrappers = main_path_launches()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, layers = capture_attention(model, full)
+    t1 = time.perf_counter()
+    _, stages = capture_forward_stages(model, full)
+    t2 = time.perf_counter()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"visualize full width (bf16, 1 frame set): capture_attention {(t1 - t0) * 1e3:.1f} ms, "
+          f"capture_forward_stages {(t2 - t1) * 1e3:.1f} ms (host clock, copies to the host included); launches "
+          f"{launches}")
+    check(launches == dict(zip(wrappers, (6, 0, 0))), f"visualize full width: launches {launches}")
+    n, (hs, ws) = rig.num_cam, (v // 2 for v in rig.Rworld_shape(4))
+    check(len(layers) == 3, f"visualize full width: {len(layers)} layers")
+    for layer in layers:
+        check(layer["sampling_locations"].shape == (1, n * hs * ws, 8, n, 4, 2)
+              and layer["attention_weights"].shape == (1, n * hs * ws, 8, n, 4), "visualize full width: shapes")
+        check(all(np.isfinite(a).all() for a in layer.values()), "visualize full width: non-finite capture")
+    h, w = rig.Rworld_shape(4)
+    check(stages["world_inputs"].shape == (1, n, h, w, 128) and stages["world_feature"].shape == (1, h, w, 128)
+          and stages["img_featmap"].shape[0] == n, "visualize full width: stage shapes")
+    check(all(np.isfinite(a).all() for a in stages.values()), "visualize full width: non-finite stage")
+    del model, layers, stages
+    torch.cuda.empty_cache()
+
+    _, log, figures = run_cli(VISUALIZE_RECIPE, figures=True)
+    skipped = [line for line in log.splitlines() if "--visualize skipped" in line]
+    print(f"visualize cli (the recipe for 1 epoch with --visualize): figures written {figures}; "
+          f"{skipped[0] if skipped else 'none skipped'}")
+    check(bool(figures) != bool(skipped), "visualize cli: neither figures nor the skip line")
+    return launches
+
+
+def run_cli(argv, trains=True, figures=False):
     """``cli.main(argv)`` on the card in a temporary logdir (removed after);
     the CLI's stdout tee and its cuDNN settings are put back. Returns
-    the trainer and ``log.txt``; a run that ``trains`` must leave a
+    the trainer and ``log.txt`` (and, with ``figures``, the names of the
+    files in ``logdir/visualize``); a run that ``trains`` must leave a
     checkpoint."""
     import torch
 
@@ -1957,13 +2204,15 @@ def run_cli(argv, trains=True):
             log = fh.read()
         check(os.path.isfile(os.path.join(logdir, "test.txt")), "cli: no test.txt")
         check(not trains or bool(os.listdir(os.path.join(logdir, "checkpoints"))), "cli: no checkpoint")
+        written = sorted(os.listdir(os.path.join(logdir, "visualize"))) if figures and os.path.isdir(
+            os.path.join(logdir, "visualize")) else []
     finally:
         if sys.stdout is not saved[0]:
             sys.stdout.close()
             sys.stdout = saved[0]
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
         shutil.rmtree(logdir, ignore_errors=True)
-    return trainer, log
+    return (trainer, log, written) if figures else (trainer, log)
 
 
 def recipe_phase(probe, argv=RECIPE, n_points=4) -> dict:
@@ -2218,6 +2467,7 @@ def main() -> int:
         b1_errs.append(fwd_case(label, **RECIPE_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
         b2_errs.append(bwd_case(label, **RECIPE_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
     halo = row_halo_phase(rng)
+    view = view_phase(rng)
 
     rig = bench_rig()
     batch = train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0)
@@ -2260,6 +2510,9 @@ def main() -> int:
     # the data-parallel step on a one-rank NCCL group, bitwise the plain step
     nccl = nccl_phase(rig, batch)
     torch.cuda.empty_cache()
+    # the --visualize captures and figures
+    visualize_launches = visualize_phase(rig)
+    torch.cuda.empty_cache()
 
     probe = EpochProbe().install()
     try:
@@ -2301,6 +2554,8 @@ def main() -> int:
         by_path["aio"] = aio_launches["serve"][name] + aio_launches["train"][name]
         by_path["checkpoint"] = sum(run[name] for run in ckpt["launches"].values())
         by_path["nccl"] = nccl["launches"][name]
+        by_path["composed_view_shards"] = view["launches"][name]
+        by_path["visualize"] = visualize_launches[name]
         for config, runs in variant_launches.items():
             by_path[config] = sum(run[name] for run in runs.values())
     check(records[2][4]["gather"] > 0 and records[2][4]["aio"] > 0, "gather and aio: B3 launched no time")
@@ -2352,6 +2607,12 @@ def main() -> int:
     rows[2]["gather_attention_max_abs_err"] = max(gather["errs"])
     rows[0]["checkpoint_radius"] = ckpt["radius"]
     rows[0]["nccl_step_ms"] = {"sharded": nccl["sharded_step_ms"], "plain": nccl["plain_step_ms"]}
+    # camera sharding: one view rank's time beside its bound, its plain version's and the unsharded kernel's, by
+    # "cameras/ranks" (the launches of the one-process composition at 7 ranks are under composed_view_shards)
+    for row, key in zip(rows, ("fwd", "bwd", "b3")):
+        row["view_rank"] = {case: dict(rec[key], cameras_per_rank=rec["cameras_per_rank"])
+                            for case, rec in view["by_shards"].items()}
+    rows[1]["view_g_value_err"] = max([view["g_value_err"]] + [rec["g_value_err"] for rec in view["by_shards"].values()])
     # B1 and B2 in row_halo mode: one BEV shard at the flagship shape (2 shards; 4 and 6 under by_shards), launches
     # from the counted one-process composition over 2 shards (compose_bev_shards: the model's sharded path needs a
     # process per shard, and the card's machine runs one)

@@ -11,16 +11,19 @@ continues the epoch loop; ``--epochs_per_process N`` stops after N epochs.
 
 The parser is the JAX package's, flag for flag and default for default,
 plus ``--device`` (default ``cuda``; the run raises without a card unless
-``--device cpu``). A flag whose feature the port does not have yet raises
-before any work: ``--view_shards`` > 1 (ROADMAP item A.9b) and
-``--visualize`` (A.5).
+``--device cpu``). ``--visualize`` writes the last test batch's figures
+into ``logdir/visualize`` after every test (one process only, as in JAX;
+without matplotlib one line says which figures were skipped).
 
 Several processes (`mvdetr_tpu/cli.py:141-144,181-226`): ``--num_processes
 N --process_id i --coordinator_address host:port`` joins N processes (gloo
 with ``--device cpu``, NCCL with ``cuda``, one GPU per process; more
 processes on a host than GPUs raise before any work), and the mesh is laid
-out as JAX lays it: ``--bev_shards`` processes along the BEV rows, the rest
-along ``data``, as many as divide the batch. Every process must be part of
+out as JAX lays it: ``--view_shards`` processes along the cameras (each runs
+the trunk, the warp and the windowed encoder's query blocks of its cameras;
+the cameras must divide, else the axis is idle and says so) times
+``--bev_shards`` along the BEV rows, the rest along ``data``, as many as
+divide the batch. Every process must be part of
 the mesh, else the run raises before any work. The logdir is then
 ``..._mh{N}_seed{seed}`` on every process; rank 0 writes ``log.txt``, the
 source snapshot, ``test.txt`` and the checkpoints. Every fusion variant
@@ -52,6 +55,12 @@ Usage::
         --num_processes 2 --process_id 0 --coordinator_address localhost:29500 &
     python -m mvdetr_tpu_torch.cli -d synthetic --device cpu -b 2 --synthetic_grid 128 256 --bev_shards 2 \
         --num_processes 2 --process_id 1 --coordinator_address localhost:29500
+    # the 4 cameras over two processes (view ranks), and the figures of one process's test
+    python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --synthetic_cams 4 --view_shards 2 \
+        --num_processes 2 --process_id 0 --coordinator_address localhost:29501 &
+    python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --synthetic_cams 4 --view_shards 2 \
+        --num_processes 2 --process_id 1 --coordinator_address localhost:29501
+    python -m mvdetr_tpu_torch.cli -d synthetic --device cpu --epochs 1 --synthetic_frames 4 --visualize
 """
 
 from __future__ import annotations
@@ -114,7 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--world_kernel_size", type=int, default=10)
     parser.add_argument("--img_reduce", type=int, default=12)
     parser.add_argument("--img_kernel_size", type=int, default=10)
-    parser.add_argument("--view_shards", type=int, default=1, help="devices along the view axis (not ported)")
+    parser.add_argument("--view_shards", type=int, default=1, help="processes along the view (camera) axis")
     parser.add_argument("--bev_shards", type=int, default=1, help="processes along the BEV-row axis")
     parser.add_argument("--coordinator_address", type=str, default=None,
                         help="host:port of rank 0's rendezvous, with --num_processes > 1")
@@ -153,17 +162,6 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_ported(args) -> None:
-    """Raise for every flag whose feature the port does not have yet."""
-    unported = {
-        "--view_shards > 1 (ROADMAP item A.9b, camera sharding)": args.view_shards > 1,
-        "--visualize (ROADMAP item A.5)": args.visualize,
-    }
-    missing = [flag for flag, used in unported.items() if used]
-    if missing:
-        raise NotImplementedError(f"mvdetr_tpu_torch.cli: not ported yet: {'; '.join(missing)}")
-
-
 def resolve_mesh(args):
     """The mesh of JAX's CLI (`mvdetr_tpu/cli.py:211-226`) over this run's
     processes, or None for one process without sharding: ``--view_shards x
@@ -191,7 +189,6 @@ def resolve_mesh(args):
 
 def main(args=None):
     args = build_parser().parse_args(args)
-    check_ported(args)
 
     import numpy as np
     import torch
@@ -316,6 +313,7 @@ def main(args=None):
                       mesh=mesh)
     res_fpath = os.path.join(logdir, "test.txt")
     ckpt_dir = os.path.join(logdir, "checkpoints")
+    visualize_dir = os.path.join(logdir, "visualize") if args.visualize else None
 
     if args.deterministic:
         trainer.check_determinism(batch_size=args.batch_size)
@@ -336,7 +334,8 @@ def main(args=None):
         for epoch in range(start_epoch, args.epochs + 1):
             print(f"=== epoch {epoch}/{args.epochs} ===")
             train_loss = trainer.train_epoch(epoch, batch_size=args.batch_size)
-            test_loss, moda, modp, prec, recall = trainer.test(batch_size=args.batch_size, res_fpath=res_fpath)
+            test_loss, moda, modp, prec, recall = trainer.test(batch_size=args.batch_size, res_fpath=res_fpath,
+                                                               visualize_dir=visualize_dir)
             history["epoch"].append(epoch)
             history["train_loss"].append(train_loss)
             history["test_loss"].append(test_loss)
@@ -357,7 +356,7 @@ def main(args=None):
         if args.profile:
             print("NOTE: --profile has no effect with --resume (the training loop is skipped)")
     print("Test loaded model...")
-    trainer.test(batch_size=args.batch_size, res_fpath=res_fpath)
+    trainer.test(batch_size=args.batch_size, res_fpath=res_fpath, visualize_dir=visualize_dir)
     return trainer
 
 

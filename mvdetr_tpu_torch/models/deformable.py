@@ -23,6 +23,13 @@ With a ``mesh`` whose ``bev`` axis holds more than one process, ``windowed``
 attention runs BEV-row-sharded with a ``+-radius`` halo exchange
 (:mod:`mvdetr_tpu_torch.ops.msda_sharded`; B1 and B2 in their ``row_halo``
 mode on every shard), as JAX's module picks it (`deformable.py:111-136,204-209`).
+With a ``view`` axis that splits the levels (the cameras,
+:func:`~mvdetr_tpu_torch.parallel.mesh.view_shards`), ``windowed`` attention
+takes this rank's query blocks: the value of its own tokens, gathered over
+``view`` (:func:`~mvdetr_tpu_torch.parallel.collectives.gather_cams`), and
+the offsets and weights of its own queries, so B1 and B2 run ``C = L / V``
+query blocks over all ``L`` levels (JAX's ``qspec = P(data, view, bev)``,
+`mvdetr_tpu/ops/msda_sharded.py:63-79`).
 
 Parameter names follow the reference checkpoint
 (``self_attn.{value_proj,sampling_offsets,attention_weights,output_proj}``,
@@ -44,6 +51,8 @@ from mvdetr_tpu_torch.ops.msda import fma, ms_deform_attn_gather
 from mvdetr_tpu_torch.ops.msda_sharded import bev_row_sharded_windowed_attention
 from mvdetr_tpu_torch.ops.msda_warped import ms_deform_attn_warped, shadow_coords
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
+from mvdetr_tpu_torch.parallel.collectives import gather_cams
+from mvdetr_tpu_torch.parallel.mesh import view_shards
 
 _MODES = ("windowed", "warped", "gather")
 _logged = set()
@@ -118,7 +127,10 @@ class MSDeformAttn(nn.Module):
     normalised; required), held as it is. Either buffer is non-persistent,
     so ``state_dict`` keeps the reference checkpoint's names. Only the
     clamped modes rescale the offsets' radial init to ``radius``
-    (`deformable.py:158`). ``mesh``: see :meth:`_bev_shards`."""
+    (`deformable.py:158`). ``mesh``: see :meth:`_bev_shards` and
+    ``view_group``: the ``view`` process group where this rank holds its
+    block of the levels' tokens (``windowed`` mode, on a ``view`` axis that
+    divides the levels), else None."""
 
     def __init__(self, d_model: int = 128, n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
                  dtype: torch.dtype = torch.float32, mode: str = "windowed", radius: int = 4,
@@ -128,6 +140,7 @@ class MSDeformAttn(nn.Module):
             raise ValueError(f"unknown MSDeformAttn mode {mode!r}; the modes are {_MODES}")
         self.d_model, self.n_levels, self.n_heads, self.n_points = d_model, n_levels, n_heads, n_points
         self.dtype, self.radius, self.mode, self.mesh = dtype, radius, mode, mesh
+        self.view_group = mesh.group("view") if mode == "windowed" and view_shards(mesh, n_levels) > 1 else None
         m, l, p = n_heads, n_levels, n_points
         self.value_proj = Linear(d_model, d_model, dtype, generator=generator)
         max_r = float(radius) if mode in ("windowed", "warped") else None  # `deformable.py:158-162`
@@ -147,6 +160,7 @@ class MSDeformAttn(nn.Module):
                 raise ValueError(f"warped mode: reference map {ref.shape} does not fit {h}x{w} queries, "
                                  f"{l} levels, {p} points")
             self.spatial_shape = (h, w)
+            self.reference_map = ref  # normalised, for utils/visualize.py::capture_attention
             self.register_buffer("shadow_xy", shadow_coords(ref, h, w), persistent=False)
         elif mode == "gather":
             if reference_points is None:
@@ -180,23 +194,39 @@ class MSDeformAttn(nn.Module):
             return 1
         return n
 
-    def forward(self, query: torch.Tensor, input_flatten: torch.Tensor, spatial_shape):
+    def project_value(self, input_flatten: torch.Tensor, spatial_shape) -> torch.Tensor:
+        """The value of ``input_flatten [B, S, C]`` (level-major tokens of
+        ``spatial_shape`` grids) as ``[B, S / (H*W), H, W, M, D]``: with a
+        ``view_group``, this rank's levels only."""
+        h, w = spatial_shape
+        m = self.n_heads
+        return self.value_proj(input_flatten).reshape(input_flatten.shape[0], -1, h, w, m, self.d_model // m)
+
+    def forward(self, query: torch.Tensor, input_flatten: torch.Tensor, spatial_shape, value=None):
         """``query [B, Q, C]``, ``input_flatten [B, S, C]`` (level-major, every
         level ``spatial_shape = (H, W)``) -> ``(out [B, Q, C],
         offset_clip_fraction)``; the fraction is None in ``gather`` mode,
-        which clamps nothing (JAX sows none there)."""
+        which clamps nothing (JAX sows none there). With a ``view_group``
+        the tokens and queries are this rank's levels' and the value of all
+        levels is gathered over it; ``value`` (``[B, L, H, W, M, D]``, from
+        :meth:`project_value` of every level's tokens) replaces that gather,
+        as :meth:`~mvdetr_tpu_torch.models.world_feat.modules.DeformTransWorldFeat.compose_view_shards`
+        passes it."""
         if self.mode == "gather":
             return self._gather(query, input_flatten, spatial_shape), None
         m, l, p = self.n_heads, self.n_levels, self.n_points
         d = self.d_model // m
         b, q, _ = query.shape
         h, w = spatial_shape
-        if input_flatten.shape[1] != l * h * w or q % (h * w) != 0:
+        if q % (h * w) != 0 or input_flatten.shape[1] % (h * w) != 0:
             raise ValueError(f"{self.mode} mode needs level-major tokens on aligned same-shape grids")
         if self.mode == "warped" and (h, w) != self.spatial_shape:
             raise ValueError(f"warped mode: grid {h}x{w}, the reference map's is {self.spatial_shape}")
         c = q // (h * w)
-        value = self.value_proj(input_flatten).reshape(b, l, h, w, m, d)
+        if value is None:
+            value = gather_cams(self.project_value(input_flatten, spatial_shape), self.view_group, dim=1)
+        if value.shape != (b, l, h, w, m, d):
+            raise ValueError(f"{self.mode} mode: a value of {tuple(value.shape)} for {l} levels of {h}x{w}")
         offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2).float()
         # softmax over (levels, points) in f32, then the value dtype (`deformable.py:170-171`)
         weights = F.softmax(self.attention_weights(query).reshape(b, q, m, l * p).float(), dim=-1)
@@ -249,9 +279,10 @@ class DeformableEncoderLayer(nn.Module):
         self.dropout3 = Dropout(dropout)
         self.norm2 = LayerNorm(d_model, dtype)
 
-    def forward(self, src, pos, spatial_shape):
+    def forward(self, src, pos, spatial_shape, value=None):
+        """``value``: see :meth:`MSDeformAttn.forward`."""
         q = src if pos is None else src + pos
-        attn, clip = self.self_attn(q, src, spatial_shape)
+        attn, clip = self.self_attn(q, src, spatial_shape, value)
         src = self.norm1(src + self.dropout1(attn))
         y = self.linear2(self.dropout2(F.relu(self.linear1(src))))
         return self.norm2(src + self.dropout3(y)), clip

@@ -190,8 +190,9 @@ class Dropout(nn.Module):
     """``nn.Dropout`` of Flax with masks from an explicit generator.
 
     In training mode (and at a rate above 0) each element, or with
-    ``channels=True`` each whole channel of an NCHW map (Flax
-    ``broadcast_dims=(1, 2)`` on NHWC, PyTorch's Dropout2d), is kept with
+    ``channels=True`` each whole channel of an NCHW map (the last two axes
+    share a mask: Flax ``broadcast_dims=(1, 2)`` on NHWC, PyTorch's
+    Dropout2d; a 5-D ``[B, N, C, H, W]`` map likewise), is kept with
     probability ``1 - p`` and scaled by ``1 / (1 - p)``; ``broadcast_dims``
     names further axes that share one mask, as Flax's do. The mask is drawn
     from ``self.generator``, which the train step sets
@@ -199,10 +200,12 @@ class Dropout(nn.Module):
     required, so a run is reproducible from its seed. JAX's random bits
     cannot be matched, so the parity tests run at rate 0.
 
-    With a ``data_shard`` ``(i, n)`` (:func:`bind_data_axis`) the input is
-    rank i's block of a global batch n times as large along axis 0: the mask
-    is drawn for the global batch and this rank keeps its block, so the ranks
-    together apply the mask of the one-process step.
+    ``shards``: ``(axis, i, n)`` triples (:func:`bind_data_axis`,
+    :func:`bind_view_axis`): along each such axis the input is rank i's block
+    of a global input n times as large (the frames over ``data``, the cameras
+    or their tokens over ``view``). The mask is drawn for the global input
+    and this rank keeps its block, so the ranks together apply the mask of
+    the one-process step.
     """
 
     def __init__(self, p: float, channels: bool = False, broadcast_dims: tuple = ()):
@@ -211,7 +214,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate must be in [0, 1], got {p}")
         self.p, self.channels, self.broadcast_dims = float(p), channels, tuple(broadcast_dims)
         self.generator: torch.Generator | None = None
-        self.data_shard = (0, 1)
+        self.shards: tuple = ()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
@@ -221,27 +224,39 @@ class Dropout(nn.Module):
         if self.generator is None:
             raise ValueError("Dropout in training mode needs a generator: set it with set_dropout_generator "
                              "(train_step does)")
-        shape = (x.shape[0], x.shape[1]) + (1,) * (x.dim() - 2) if self.channels else tuple(x.shape)
+        shape = tuple(x.shape[:-2]) + (1, 1) if self.channels else tuple(x.shape)
         shape = tuple(1 if i in self.broadcast_dims else s for i, s in enumerate(shape))
-        index, count = self.data_shard
-        if count > 1 and 0 not in self.broadcast_dims:
-            rows = shape[0]
-            full = torch.rand((rows * count,) + shape[1:], generator=self.generator, device=x.device)
-            keep = full[index * rows:(index + 1) * rows] >= self.p
-        else:
-            keep = torch.rand(shape, generator=self.generator, device=x.device) >= self.p
+        shards = [(axis, i, n) for axis, i, n in self.shards if n > 1 and axis not in self.broadcast_dims]
+        full = list(shape)
+        for axis, _, n in shards:
+            full[axis] *= n
+        keep = torch.rand(full, generator=self.generator, device=x.device) >= self.p
+        for axis, i, _ in shards:
+            keep = keep.narrow(axis, i * shape[axis], shape[axis])
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def bind_data_axis(module: nn.Module, mesh) -> None:
+def bind_data_axis(module: nn.Module, mesh, stats_axis="data") -> None:
     """Put every :class:`BatchNorm2d` and :class:`Dropout` under ``module``
-    on ``mesh``'s ``data`` axis: batch statistics over its group, dropout
-    masks cut from the global batch's."""
+    on ``mesh``'s ``data`` axis: batch statistics over the group of
+    ``stats_axis`` (``"data"``, or ``("data", "view")`` for a trunk whose
+    cameras are split over ``view``: JAX's statistics over the global
+    ``B*N``), dropout masks cut from the global batch's."""
     for m in module.modules():
         if isinstance(m, BatchNorm2d):
-            m.data_group = mesh.group("data")
+            m.data_group = mesh.group(stats_axis)
         elif isinstance(m, Dropout):
-            m.data_shard = (mesh.index("data"), mesh.shape["data"])
+            m.shards = ((0, mesh.index("data"), mesh.shape["data"]),)
+
+
+def bind_view_axis(module: nn.Module, mesh, axis: int = 1) -> None:
+    """Cut the masks of every :class:`Dropout` under ``module`` also along
+    ``axis`` to this rank's block of the ``view`` axis: the module runs on
+    this rank's cameras (or their tokens), and the mask is drawn for all of
+    them. Call after :func:`bind_data_axis`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.shards = tuple(m.shards) + ((axis, mesh.index("view"), mesh.shape["view"]),)
 
 
 def set_dropout_generator(module: nn.Module, generator: torch.Generator | None) -> None:

@@ -23,6 +23,24 @@ statistics of the global batch over the ``data`` axis and its dropout masks
 are its block of the global batch's, and the ``deform_trans`` encoder's
 windowed attention shards the BEV rows over the ``bev`` axis.
 
+A ``view`` axis that divides the cameras
+(:func:`~mvdetr_tpu_torch.parallel.mesh.view_shards`) splits them into V
+blocks, as JAX constrains the ``[B*N]`` trunk input and the warped stack to
+``("data", "view")`` (`mvdetr_tpu/models/mvdetr.py:144,196`): the model takes
+this rank's cameras ``[B, N/V, ...]``, and the trunk (statistics over the
+``("data", "view")`` group: JAX's over the global ``B*N``), the bottleneck
+and its Dropout2d (this rank's block of the global mask), the per-view
+heads and the warp (B3's backward on this rank's cameras) run on them with
+their rows of ``proj_mats``. The windowed ``deform_trans`` encoder runs on
+their query blocks and gathers the cameras after its last layer
+(:class:`~mvdetr_tpu_torch.models.world_feat.modules.DeformTransWorldFeat`);
+every other fusion gets the warped stack of all cameras, gathered over
+``view`` (:func:`~mvdetr_tpu_torch.parallel.collectives.gather_cams`), and
+runs replicated. The BEV heads run replicated on every view rank. A ``view``
+axis that does not divide the cameras is idle, as JAX's ``_constrain``
+leaves it (`mvdetr.py:222-242`): every view rank runs every camera.
+``num_cam`` stays the global count.
+
 The public layout is the JAX package's: NHWC images ``[B, N, H, W, 3]`` and
 NHWC head outputs. Inside, convolutions run on NCHW-shaped tensors in the
 channels-last memory format, which is the same bytes as NHWC.
@@ -48,11 +66,14 @@ import torch.nn as nn
 
 from mvdetr_tpu_torch.device import resolve_device
 from mvdetr_tpu_torch.models.heads import HEATMAP_BIAS_INIT, OutputHead
-from mvdetr_tpu_torch.models.layers import Conv2d, Dropout, bind_data_axis
+from mvdetr_tpu_torch.models.deformable import log_once
+from mvdetr_tpu_torch.models.layers import Conv2d, Dropout, bind_data_axis, bind_view_axis
 from mvdetr_tpu_torch.models.resnet import resnet_features
 from mvdetr_tpu_torch.models.vgg import vgg11_features
 from mvdetr_tpu_torch.models.world_feat import build_world_feat
 from mvdetr_tpu_torch.ops.warp import invert_3x3, perspective_warp
+from mvdetr_tpu_torch.parallel.collectives import gather_cams
+from mvdetr_tpu_torch.parallel.mesh import DATA_VIEW, view_shards
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -114,8 +135,28 @@ class MVDeTr(nn.Module):
         self.world_offset = OutputHead(wdim, 2, outfeat_dim, dtype=dt, generator=g)
         self.register_buffer("proj_mats", torch.as_tensor(np.asarray(proj_mats), dtype=torch.float32),
                              persistent=False)
+        # the view axis: this rank's block of the cameras, or all of them where the axis is idle
+        self.view_shards = view_shards(mesh, num_cam)
+        self.view_group = mesh.group("view") if self.view_shards > 1 else None
+        self.local_cams = num_cam // self.view_shards
+        self.first_cam = mesh.index("view") * self.local_cams if self.view_shards > 1 else 0
         if mesh is not None:
-            bind_data_axis(self, mesh)
+            bind_data_axis(self, mesh, DATA_VIEW if self.view_shards > 1 else "data")
+        if self.view_shards > 1:
+            bind_view_axis(self.bottleneck_dropout, mesh)
+            if getattr(self.world_feat, "shards_views", False):
+                self.world_feat.bind_view_axis(mesh)
+            else:
+                log_once(f"view_fusion_{world_feat_arch}",
+                         f"mesh has view={self.view_shards}: the trunk, per-view heads and warp run on this rank's "
+                         f"{self.local_cams} camera(s); the {world_feat_arch} fusion"
+                         f"{'' if world_feat_arch != 'deform_trans' else ' in ' + self.world_feat.mode + ' mode'} "
+                         f"runs replicated over view on all {num_cam} cameras (only windowed deform_trans shards "
+                         f"its query blocks)")
+        elif mesh is not None and mesh.shape["view"] > 1:
+            log_once(f"view_idle_{num_cam}_{mesh.shape['view']}",
+                     f"mesh has view={mesh.shape['view']} but {num_cam} cameras do not divide over it: every view "
+                     f"rank runs every camera, replicated (pick view_shards dividing {num_cam})")
 
     @classmethod
     def from_rig(cls, rig, world_reduce: int = 4, img_reduce: int = 12, arch: str = "resnet18",
@@ -162,10 +203,9 @@ class MVDeTr(nn.Module):
         ``feat_hw`` to the BEV cells: feature px -> image px (x img_reduce) ->
         un-augment -> BEV (`mvdetr.py:170-175`), with kornia's resampling
         folded in under ``warp_convention="kornia"`` (`mvdetr.py:176-189`)."""
-        n = self.num_cam
-        b = affine_mats.shape[0]
+        b, n = affine_mats.shape[:2]
         dev = affine_mats.device
-        proj = self.proj_mats.to(dev).repeat(b, 1, 1)
+        proj = self.proj_mats[self.first_cam:self.first_cam + n].to(dev).repeat(b, 1, 1)
         inv_aff = invert_3x3(affine_mats.reshape(b * n, 3, 3).to(torch.float32))
         reduce_mat = torch.diag(torch.tensor([self.img_reduce, self.img_reduce, 1.0], device=dev))
         full_proj = proj @ inv_aff @ reduce_mat
@@ -183,10 +223,12 @@ class MVDeTr(nn.Module):
         """``imgs [B, N, H, W, 3]`` (uint8, or float already normalised),
         ``affine_mats [B, N, 3, 3]`` augmentation affines in full-resolution
         pixels -> ``(((world_heatmap, world_offset), (imgs_heatmap,
-        imgs_offset, imgs_wh)), offset_clip_fraction per encoder layer)``."""
+        imgs_offset, imgs_wh)), offset_clip_fraction per encoder layer)``.
+        On a ``view`` axis that splits the cameras, N is this rank's
+        ``num_cam / V`` cameras and the per-view heads are theirs."""
         b, n, h, w, _ = imgs.shape
-        if n != self.num_cam:
-            raise ValueError(f"expected {self.num_cam} cameras, got {n}")
+        if n != self.local_cams:
+            raise ValueError(f"expected {self.local_cams} cameras, got {n}")
         x = imgs.reshape(b * n, h, w, 3)
         if x.dtype == torch.uint8:
             dt = self.compute_dtype or torch.float32
@@ -197,7 +239,8 @@ class MVDeTr(nn.Module):
 
         feat = self.base(x)
         if self.bottleneck is not None:
-            feat = self.bottleneck_dropout(self.bottleneck(feat))
+            # Dropout2d on [B, N, C, H, W]: its mask is drawn per (frame, camera, channel) of the global batch
+            feat = self.bottleneck_dropout(self.bottleneck(feat).unflatten(0, (b, n))).flatten(0, 1)
         imgs_heatmap = self.img_heatmap(feat)
         imgs_offset = self.img_offset(feat)
         imgs_wh = self.img_wh(feat)
@@ -205,6 +248,8 @@ class MVDeTr(nn.Module):
         full_proj = self.warp_mats(affine_mats.to(x.device), feat.shape[2:4])
         world_in = perspective_warp(feat.permute(0, 2, 3, 1), full_proj, self.Rworld_shape)
         world_in = world_in.reshape(b, n, self.Rworld_shape[0], self.Rworld_shape[1], -1)
+        if self.view_shards > 1 and not getattr(self.world_feat, "shards_views", False):
+            world_in = gather_cams(world_in, self.view_group, dim=1)
         world_feat, clips = self.world_feat(world_in)
         world_feat = world_feat.permute(0, 3, 1, 2)
         world_heatmap = self.world_heatmap(world_feat)

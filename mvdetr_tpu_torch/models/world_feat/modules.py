@@ -17,6 +17,11 @@ fractions)`` out.
 
 Parameter names are the reference checkpoint's; only ``deform_trans``
 reports clip fractions.
+
+On a mesh whose ``view`` axis splits the cameras, the model gives every
+fusion all cameras gathered over ``view`` and it runs replicated, except
+``DeformTransWorldFeat`` in ``windowed`` mode: it takes this rank's cameras
+and runs the encoder on their query blocks (see the class).
 """
 
 from __future__ import annotations
@@ -28,10 +33,12 @@ import torch
 import torch.nn as nn
 
 from mvdetr_tpu_torch.models.deformable import DeformableEncoder
-from mvdetr_tpu_torch.models.layers import Conv2d
+from mvdetr_tpu_torch.models.layers import Conv2d, bind_view_axis
 from mvdetr_tpu_torch.models.pos_embed import coord_map, sine_pos_embedding
 from mvdetr_tpu_torch.models.transformer import TransformerEncoder
 from mvdetr_tpu_torch.ops.deform_conv import deform_conv2d_grouped
+from mvdetr_tpu_torch.parallel.collectives import gather_cams
+from mvdetr_tpu_torch.parallel.mesh import view_shards
 
 
 def resize_matrix(n_in: int, n_out: int) -> np.ndarray:
@@ -115,6 +122,18 @@ class DeformTransWorldFeat(nn.Module):
     (``[N*Hs*Ws, N, P, 2]``, `models/mvdetr.py:129-130`), since the grid size
     is known from ``world_shape`` already; ``warped`` and ``gather`` modes
     hand the map to the encoder (`modules.py:166-181`).
+
+    ``shards_views``: in ``windowed`` mode on a ``mesh`` whose ``view`` axis
+    splits the cameras into V blocks, the input is this rank's ``N / V``
+    cameras. The downsample, the tokens (with this rank's rows of
+    ``lvl_embedding``) and every encoder layer's value projection, offsets,
+    weights, attention over all N levels (each layer gathers the value over
+    ``view``), output projection, norms and FFN run on them; the encoder's
+    dropouts keep this rank's block of the global mask. After the last
+    layer every rank gathers all cameras' tokens
+    (:func:`~mvdetr_tpu_torch.parallel.collectives.gather_cams`) and the
+    camera-major merge, ``merge_linear``, the upsample and the BEV heads run
+    replicated. :meth:`compose_view_shards` runs the V ranks in one process.
     """
 
     def __init__(self, num_cam: int, world_shape: Tuple[int, int], base_dim: int = 128,
@@ -139,6 +158,9 @@ class DeformTransWorldFeat(nn.Module):
                                          self.mode, attn_radius, generator,
                                          reference_points if self.mode in ("warped", "gather") else None, self.grid,
                                          mesh)
+        self.shards_views = self.mode == "windowed" and view_shards(mesh, num_cam) > 1
+        self.view_group = mesh.group("view") if self.shards_views else None
+        self.first_cam = mesh.index("view") * (num_cam // mesh.shape["view"]) if self.shards_views else 0
         self.merge_linear = nn.Sequential(
             Conv2d(num_cam * hidden_dim, hidden_dim, 1, dtype=dtype, init="xavier", generator=generator),
             nn.ReLU(),
@@ -152,22 +174,71 @@ class DeformTransWorldFeat(nn.Module):
         pos = torch.from_numpy(sine_pos_embedding((hs, ws), hidden_dim // 2)).reshape(1, 1, hs * ws, hidden_dim)
         self.register_buffer("pos", pos, persistent=False)
 
-    def forward(self, x: torch.Tensor):
-        """Returns ``(y [B, H, W, C], offset_clip_fraction per layer)``."""
+    def bind_view_axis(self, mesh) -> None:
+        """Cut the encoder's dropout masks to this rank's tokens (a view
+        rank holds its cameras' tokens, axis 1); called by the model after
+        binding the data axis."""
+        if self.shards_views:
+            bind_view_axis(self.encoder, mesh)
+
+    def tokens(self, x: torch.Tensor, first_cam: int = 0):
+        """Cameras ``first_cam ..`` of the input, ``x [B, n, H, W, C]`` ->
+        ``(tokens [B, n*Hs*Ws, C], their position and level embedding, (Hs, Ws))``."""
         b, n, h, w, c = x.shape
         y = self.downsample(x.reshape(b * n, h, w, c).permute(0, 3, 1, 2))  # NCHW
         hs, ws = y.shape[2], y.shape[3]
         if (hs, ws) != self.grid:
             raise ValueError(f"input grid {h}x{w} does not match world_shape {self.world_shape}")
         tokens = y.permute(0, 2, 3, 1).reshape(b, n * hs * ws, self.hidden_dim)
-        pos_lvl = (self.pos.to(y.dtype) + self.lvl_embedding[None, :, None, :].to(y.dtype))
-        pos_lvl = pos_lvl.reshape(1, n * hs * ws, self.hidden_dim)
-        tokens, clips = self.encoder(tokens, (hs, ws), pos_lvl)
+        lvl = self.lvl_embedding[first_cam:first_cam + n]
+        pos_lvl = (self.pos.to(y.dtype) + lvl[None, :, None, :].to(y.dtype))
+        return tokens, pos_lvl.reshape(1, n * hs * ws, self.hidden_dim), (hs, ws)
+
+    def merge(self, tokens: torch.Tensor, hs: int, ws: int) -> torch.Tensor:
+        """All cameras' tokens ``[B, N*Hs*Ws, C]`` -> ``[B, H, W, C]``."""
+        b, n = tokens.shape[0], self.num_cam
         # camera-major merge: [B, N, hs, ws, C] -> [B, hs, ws, N*C] (`modules.py:185`)
         y = tokens.reshape(b, n, hs, ws, self.hidden_dim).permute(0, 2, 3, 1, 4)
         y = y.reshape(b, hs, ws, n * self.hidden_dim).permute(0, 3, 1, 2)
         y = self.upsample(self.merge_linear(y))
-        return y.permute(0, 2, 3, 1), clips
+        return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor):
+        """Returns ``(y [B, H, W, C], offset_clip_fraction per layer)``; with
+        ``shards_views``, ``x`` holds this rank's cameras and the clip
+        fractions are its queries' (the caller averages them over ``view``)."""
+        tokens, pos_lvl, (hs, ws) = self.tokens(x, self.first_cam)
+        tokens, clips = self.encoder(tokens, (hs, ws), pos_lvl)
+        if self.shards_views:
+            b, c = tokens.shape[0], tokens.shape[2]
+            tokens = gather_cams(tokens.reshape(b, x.shape[1], hs * ws, c), self.view_group, dim=1)
+            tokens = tokens.reshape(b, self.num_cam * hs * ws, c)
+        return self.merge(tokens, hs, ws), clips
+
+    def compose_view_shards(self, x: torch.Tensor, n: int):
+        """The forward of ``n`` view ranks (``windowed`` mode, ``n`` dividing
+        the cameras) run one after another in one process, on all cameras
+        ``x [B, N, H, W, C]``: each rank's cameras, tokens and query blocks
+        as on a ``view`` axis of ``n``; each layer's value is every rank's
+        :meth:`~mvdetr_tpu_torch.models.deformable.MSDeformAttn.project_value`
+        concatenated, which the gather delivers (its gradient is the ranks'
+        contributions, added up by autograd). Returns what :meth:`forward`
+        returns, the clip fractions averaged over the ranks. Dropout draws
+        one rank's masks per call: use it at rate 0 or in eval mode."""
+        b, cams = x.shape[:2]
+        if self.mode != "windowed" or cams != self.num_cam or cams % n:
+            raise ValueError(f"compose_view_shards: {cams} cameras in {self.mode} mode do not split into {n} shards")
+        per = cams // n
+        shards = [self.tokens(x[:, r * per:(r + 1) * per], r * per) for r in range(n)]
+        hs, ws = shards[0][2]
+        src = [s[0] for s in shards]
+        clips = []
+        for layer in self.encoder.layers:
+            value = torch.cat([layer.self_attn.project_value(t, (hs, ws)) for t in src], dim=1)
+            outs = [layer(t, pos, (hs, ws), value) for t, (_, pos, _) in zip(src, shards)]
+            src = [o[0] for o in outs]
+            clips.append(torch.stack([o[1] for o in outs]).mean())
+        return self.merge(torch.cat(src, dim=1), hs, ws), clips
 
 
 class DeformTransWorldFeatAIO(nn.Module):

@@ -13,6 +13,9 @@ the backend's own reduction order:
   (`mvdetr_tpu/ops/msda_sharded.py:52-59`), their gradient sent back;
 - :func:`gather_rows` and :func:`take_rows`: a shard's row block to the full
   map and back;
+- :func:`gather_cams`: every view rank's camera block to all cameras, with
+  the backward that sums the ranks' cotangents (the camera-sharded model's
+  one collective, `mvdetr_tpu/parallel/sharding.py:1-17`);
 - :func:`reduce_gradients` and :func:`check_replicated`: the data-parallel
   step's gradient sum and its check that every rank holds the same
   parameters afterwards.
@@ -184,6 +187,34 @@ def take_rows(x: torch.Tensor, group, dim: int = 2) -> torch.Tensor:
     if x.shape[dim] % group_size(group):
         raise ValueError(f"take_rows: {x.shape[dim]} rows do not divide into {group_size(group)} shards")
     return _TakeRows.apply(x, group, dim)
+
+
+class _GatherCams(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.rows = group, dim, x.shape[dim]
+        return torch.cat(all_gather_list(x, group), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank consumes all blocks, each in its own way (its query blocks, or its share of the loss): the
+        # gradient of this rank's block is the sum of every rank's cotangent of it, in rank order
+        return _rows(reduce_sum(g, ctx.group), ctx.dim, group_rank(ctx.group) * ctx.rows, ctx.rows), None, None
+
+
+def gather_cams(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """All cameras from every view rank's block along ``dim``, in rank order.
+    The backward sums the cotangents of every rank in rank order and takes
+    this rank's block: each rank's consumers differ (the encoder's value,
+    sampled from each rank's own query blocks), or each rank's loss is its
+    share of the global loss (the replicated part after the last gather).
+
+    :func:`gather_rows` is the same gather with the other backward (this
+    rank's block of a cotangent the ranks hold equal); the camera-sharded
+    model needs only this one, since every rank's loss is its share of the
+    global loss (``train/trainer.py``). The sum gathers every rank's whole
+    cotangent: each rank receives V - 1 of them for the 1 / V it keeps."""
+    return x if group is None else _GatherCams.apply(x, group, dim)
 
 
 def reduce_gradients(module: torch.nn.Module, group) -> None:

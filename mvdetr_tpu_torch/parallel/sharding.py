@@ -6,13 +6,16 @@ holds a replica and its frames:
 
 - :func:`replicate_state`: rank 0's parameters, BatchNorm statistics and
   optimizer state, broadcast to every rank;
-- :func:`shard_batch`: this rank's frame rows of a global batch (JAX's
-  ``batch_shardings`` of the frame axis);
+- :func:`shard_batch`: this rank's block of a global batch, JAX's
+  ``batch_shardings``: the frame axis over ``data``, then the camera axis of
+  ``imgs``, ``affine_mats`` and every ``imgs_gt`` array over ``view``
+  (:func:`shard_cams`; ``world_gt`` has no camera axis);
 - :func:`make_sharded_train_step` and :func:`make_sharded_eval_step`: the
   steps of :mod:`mvdetr_tpu_torch.train.trainer` on the mesh. The train step
   sums the loss normalisers, the BatchNorm statistics (in the model, bound
-  by ``MVDeTr.from_rig(mesh=...)``) and the gradients over ``data`` in rank
-  order, and checks that every rank ends the step with the same parameters.
+  by ``MVDeTr.from_rig(mesh=...)``) and the gradients over ``data`` (and
+  ``view``) in rank order, and checks that every rank ends the step with the
+  same parameters.
 """
 
 from __future__ import annotations
@@ -22,7 +25,10 @@ import functools
 import torch
 import torch.distributed as dist
 
+from mvdetr_tpu_torch.parallel.mesh import view_shards
 from mvdetr_tpu_torch.parallel.multihost import process_batch_slice
+
+CAMERA_KEYS = ("imgs", "affine_mats", "imgs_gt")  # the batch entries with a camera axis (axis 1)
 
 
 def replicate_state(state, mesh) -> None:
@@ -47,15 +53,31 @@ def replicate_state(state, mesh) -> None:
     state.step = int(step)
 
 
+def _cut(x, index):
+    return {k: _cut(v, index) for k, v in x.items()} if isinstance(x, dict) else x[index]
+
+
+def shard_cams(batch: dict, mesh) -> dict:
+    """This rank's cameras of a batch (any frames): the camera axis of
+    ``imgs``, ``affine_mats`` and the ``imgs_gt`` arrays cut to the block of
+    its ``view`` coordinate; the batch as it is where the axis is idle
+    (:func:`~mvdetr_tpu_torch.parallel.mesh.view_shards`)."""
+    if mesh is None or mesh.shape["view"] == 1:
+        return batch
+    n = batch["imgs"].shape[1]
+    v = view_shards(mesh, n)
+    if v == 1:
+        return batch
+    per = n // v
+    cams = (slice(None), slice(mesh.index("view") * per, (mesh.index("view") + 1) * per))
+    return {k: _cut(x, cams) if k in CAMERA_KEYS else x for k, x in batch.items()}
+
+
 def shard_batch(batch: dict, mesh) -> dict:
-    """This rank's rows of every array of a global ``batch``: the frame axis
-    over ``data`` (the targets' dicts likewise)."""
-    rows = process_batch_slice(len(batch["imgs"]), mesh)
-
-    def cut(x):
-        return {k: cut(v) for k, v in x.items()} if isinstance(x, dict) else x[rows]
-
-    return cut(batch)
+    """This rank's block of every array of a global ``batch``: the frame axis
+    over ``data`` (the targets' dicts likewise), then the cameras over
+    ``view`` (:func:`shard_cams`)."""
+    return shard_cams(_cut(batch, process_batch_slice(len(batch["imgs"]), mesh)), mesh)
 
 
 def make_sharded_train_step(mesh, alpha: float = 1.0, use_mse: bool = False):

@@ -10,9 +10,8 @@
   ``distance_nms``, plus the loss terms when the batch carries targets.
 - :class:`Trainer`: the epoch loop over a ``FrameDataset`` (worker threads,
   batches uploaded ahead by :func:`~mvdetr_tpu_torch.data.prefetch.prefetch_to_device`),
-  the CLEAR test (`trainer.py:99-169` of the original MVDeTr) and the
-  bitwise determinism check. Its heatmap and shadow-figure dumps wait for
-  ROADMAP item A.5.
+  the CLEAR test (`trainer.py:99-169` of the original MVDeTr) with its
+  ``--visualize`` figures, and the bitwise determinism check.
 
 With a ``mesh`` (:mod:`mvdetr_tpu_torch.parallel`) each process is one rank
 of the JAX package's sharded steps (`mvdetr_tpu/train/trainer.py:147-195,
@@ -26,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
 import time
 from typing import Optional
 
@@ -42,10 +42,15 @@ from mvdetr_tpu_torch.ops import distance_nms, mvdet_decode, top_k
 from mvdetr_tpu_torch.parallel.collectives import (
     all_gather_list, check_replicated, group_size, reduce_gradients, reduce_sum,
 )
+from mvdetr_tpu_torch.parallel.mesh import DATA_VIEW
 from mvdetr_tpu_torch.parallel.multihost import process_batch_slice
-from mvdetr_tpu_torch.parallel.sharding import replicate_state
+from mvdetr_tpu_torch.parallel.sharding import replicate_state, shard_cams
 from mvdetr_tpu_torch.train.optim import schedule_step
 from mvdetr_tpu_torch.utils.profiling import device_trace
+from mvdetr_tpu_torch.utils.visualize import (
+    STAGE_FIGURES, capture_attention, inference_outputs, matplotlib_pyplot, save_forward_stage_figures,
+    shadow_backprojected, to_numpy,
+)
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -57,13 +62,22 @@ def batch_to_device(batch: dict, device) -> dict:
     return {k: put(v) for k, v in batch.items()}
 
 
-def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = False, group=None):
+def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = False, group=None, cam_group=None,
+                    num_cam: Optional[int] = None, world_share: float = 1.0):
     """Compose the MVDeTr loss (`trainer.py:52-66` of the reference).
     ``outputs`` as the model returns them (NHWC); the batch's ``world_gt`` and
     ``imgs_gt`` as :func:`mvdetr_tpu_torch.data.build_targets` makes them,
     stacked. Returns ``(loss, aux)``. ``group``: the ``data`` axis's process
     group, over which every normaliser is taken (:mod:`mvdetr_tpu_torch.losses`):
     the loss is then this rank's share of the global batch's.
+
+    On a mesh whose ``view`` axis splits the cameras (:func:`loss_axes`) the
+    per-view terms are this rank's cameras', with their normalisers over
+    ``cam_group`` (``("data", "view")``), the per-view sum is still divided
+    by the global ``num_cam`` (not the batch's N / V cameras), and the BEV
+    terms, which every view rank computes alike, enter ``loss`` with weight
+    ``world_share = 1 / V``: the ranks' losses add up to the global loss.
+    ``aux`` holds the terms unweighted.
 
     The per-view targets lie on the stride-8 grid of the input. A stride-16
     trunk (VGG-11) gives per-view head maps of half that size, against which
@@ -80,34 +94,62 @@ def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = Fa
     def flat(x):  # [B, N, ...] -> [B*N, ...]
         return x.reshape((b * n,) + tuple(x.shape[2:]))
 
+    cam_group = group if cam_group is None else cam_group
+    num_cam = n if num_cam is None else num_cam
+
+    def world(term):  # a BEV term's share on this view rank; exact for V a power of two
+        return term if world_share == 1.0 else term * world_share
+
     if use_mse:
-        loss = (losses.gaussian_mse_loss(world_heatmap, wgt["heatmap"], group)
-                + alpha * losses.gaussian_mse_loss(imgs_heatmap, flat(igt["heatmap"]), group))
+        loss = (world(losses.gaussian_mse_loss(world_heatmap, wgt["heatmap"], group))
+                + alpha * losses.gaussian_mse_loss(imgs_heatmap, flat(igt["heatmap"]), cam_group))
         return loss, {"loss": loss}
 
     loss_w_hm = losses.focal_loss(world_heatmap, wgt["heatmap"], group=group)
     loss_w_off = losses.reg_l1_loss(world_offset, wgt["reg_mask"], wgt["idx"], wgt["offset"], group)
-    loss_img_hm = losses.focal_loss(imgs_heatmap, flat(igt["heatmap"]), group=group)
+    loss_img_hm = losses.focal_loss(imgs_heatmap, flat(igt["heatmap"]), group=cam_group)
     loss_img_off = losses.reg_l1_loss(imgs_offset, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["offset"]),
-                                      group)
-    loss_img_wh = losses.reg_l1_loss(imgs_wh, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["wh"]), group)
-    loss = loss_w_hm + loss_w_off + (loss_img_hm + loss_img_off + 0.1 * loss_img_wh) / n * alpha
+                                      cam_group)
+    loss_img_wh = losses.reg_l1_loss(imgs_wh, flat(igt["reg_mask"]), flat(igt["idx"]), flat(igt["wh"]), cam_group)
+    loss = world(loss_w_hm + loss_w_off) + (loss_img_hm + loss_img_off + 0.1 * loss_img_wh) / num_cam * alpha
     return loss, {"loss": loss, "w_hm": loss_w_hm, "w_off": loss_w_off, "img_hm": loss_img_hm,
                   "img_off": loss_img_off, "img_wh": loss_img_wh}
 
 
-def global_aux(aux: dict, group) -> dict:
+def loss_axes(model, mesh) -> dict:
+    """The process groups and weights of :func:`supervised_loss` for
+    ``model`` on ``mesh``: ``group`` the ``data`` axis's, ``cam_group`` the
+    group of the per-view terms and of the gradients (``("data", "view")``
+    where the model splits the cameras over ``view``, else ``data``'s),
+    ``num_cam`` the global camera count, ``world_share`` 1 / V."""
+    if mesh is None:
+        return {}
+    v = getattr(model, "view_shards", 1)
+    return {"group": mesh.group("data"), "cam_group": mesh.group(DATA_VIEW) if v > 1 else mesh.group("data"),
+            "num_cam": model.num_cam, "world_share": 1.0 / v}
+
+
+WORLD_TERMS = ("w_hm", "w_off")  # the BEV loss terms, alike on every view rank
+
+
+def global_aux(aux: dict, group, cam_group=None) -> dict:
     """The global batch's ``aux`` from every rank's: the loss terms (each
-    rank's share) summed over ``group`` in rank order, the
-    ``offset_clip_fraction`` (each rank's mean over its frames) averaged."""
-    if group is None or not aux:
+    rank's share) summed in rank order, the BEV terms over ``group`` (the
+    ``data`` axis) and the rest over ``cam_group`` (default ``group``), and
+    the ``offset_clip_fraction`` (each rank's mean over its queries) averaged
+    over ``cam_group``."""
+    cam_group = group if cam_group is None else cam_group
+    if cam_group is None or not aux:
         return aux
-    keys = sorted(aux)
-    total = reduce_sum(torch.stack([aux[k].float() for k in keys]), group)
-    out = dict(zip(keys, total.unbind()))
+    out = {}
+    for g, keys in ((group, [k for k in sorted(aux) if k in WORLD_TERMS]),
+                    (cam_group, [k for k in sorted(aux) if k not in WORLD_TERMS])):
+        if keys:
+            total = reduce_sum(torch.stack([aux[k].float() for k in keys]), g)
+            out.update(zip(keys, total.unbind()))
     if "offset_clip_fraction" in out:
-        out["offset_clip_fraction"] = out["offset_clip_fraction"] / group_size(group)
-    return out
+        out["offset_clip_fraction"] = out["offset_clip_fraction"] / group_size(cam_group)
+    return {k: out[k] for k in aux}
 
 
 def _model_device(model, device):
@@ -136,21 +178,27 @@ def train_step(state, batch: dict, generator: torch.Generator, alpha: float = 1.
     global batch (:func:`mvdetr_tpu_torch.parallel.sharding.make_sharded_train_step`):
     the loss normalisers and the gradients are summed over the ``data``
     axis, ``aux`` holds the global batch's values, and the step ends by
-    checking that every rank holds the same parameters.
+    checking that every rank holds the same parameters. Where the model
+    splits the cameras over ``view`` the batch holds this rank's cameras,
+    each rank's loss is its share of the global loss (:func:`supervised_loss`:
+    the BEV terms at 1 / V), and every gradient is summed over ``("data",
+    "view")``: with the camera gather's summed backward
+    (:func:`~mvdetr_tpu_torch.parallel.collectives.gather_cams`) each
+    parameter's applied gradient is the one-process step's.
     """
     model = state.model
     model_dev = _model_device(model, device)
     batch = batch_to_device(batch, model_dev)
-    data_group = None if mesh is None else mesh.group("data")
+    axes = loss_axes(model, mesh)
     was_training = model.training
     model.train()
     set_dropout_generator(model, generator)
     try:
         state.optimizer.zero_grad(set_to_none=True)
         outputs, clips = model(batch["imgs"], batch["affine_mats"])
-        loss, aux = supervised_loss(outputs, batch, alpha, use_mse, data_group)
+        loss, aux = supervised_loss(outputs, batch, alpha, use_mse, **axes)
         loss.backward()
-        reduce_gradients(model, data_group)
+        reduce_gradients(model, axes.get("cam_group"))
         state.optimizer.step()
         schedule_step(state.scheduler)
         state.step += 1
@@ -161,7 +209,7 @@ def train_step(state, batch: dict, generator: torch.Generator, alpha: float = 1.
     if clips:
         aux["offset_clip_fraction"] = torch.stack(clips).mean().detach()
     if mesh is not None:
-        aux = global_aux(aux, data_group)
+        aux = global_aux(aux, axes["group"], axes["cam_group"])
         check_replicated(model, mesh.world_group)
     return state, aux
 
@@ -195,7 +243,8 @@ def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 5
     ``mesh``: this rank's part of the sharded eval step, on its block of a
     global batch: ``aux`` holds the global batch's values and ``xys`` and
     ``keep`` every rank's blocks, gathered over ``data`` in rank order, so
-    every rank returns the same outputs.
+    every rank returns the same outputs (the BEV heads run replicated over
+    ``view`` and ``bev``).
     """
     model_dev = _model_device(model, device)
     batch = batch_to_device(batch, model_dev)
@@ -205,16 +254,18 @@ def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 5
         outputs, clips = model(batch["imgs"], batch["affine_mats"])
     finally:
         model.train(was_training)
-    data_group = None if mesh is None else mesh.group("data")
+    axes = loss_axes(model, mesh)
+    data_group = axes.get("group")
     aux = {}
     if "world_gt" in batch and "imgs_gt" in batch:
-        aux = supervised_loss(outputs, batch, alpha, use_mse, data_group)[1]
+        aux = supervised_loss(outputs, batch, alpha, use_mse, **axes)[1]
     if clips:
         aux["offset_clip_fraction"] = torch.stack(clips).mean()
     (world_heatmap, world_offset), _ = outputs
     xys, keep = decode_detections(world_heatmap, world_offset, world_reduce, num_candidates, nms_dist)
+    if mesh is not None:
+        aux = global_aux(aux, data_group, axes["cam_group"])
     if data_group is not None:
-        aux = global_aux(aux, data_group)
         xys = torch.cat(all_gather_list(xys, data_group))
         keep = torch.cat(all_gather_list(keep.to(torch.uint8), data_group)).bool()  # gloo gathers no bool
     return aux, xys, keep
@@ -273,6 +324,7 @@ class Trainer:
         self.seed = seed
         self.device = next(state.model.parameters()).device
         self.mesh = mesh
+        self._figures_skipped = False
         if mesh is not None:
             replicate_state(state, mesh)
 
@@ -281,12 +333,27 @@ class Trainer:
         seed = int(np.random.SeedSequence([self.seed, step]).generate_state(1, np.uint64)[0])
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _host_batches(self, dataset, batch_size: int, **kwargs):
+        """Worker-assembled host batches of ``dataset``: this rank's frames
+        of each global batch, and its cameras (:func:`~mvdetr_tpu_torch.parallel.sharding.shard_cams`)."""
+        it = dataset.batches(batch_size, num_workers=self.num_workers,
+                             local_slice=process_batch_slice(batch_size, self.mesh), **kwargs)
+        if self.mesh is None or self.mesh.shape["view"] == 1:
+            return it
+
+        def cams():
+            try:
+                for batch in it:
+                    yield shard_cams(batch, self.mesh)
+            finally:
+                it.close()
+
+        return cams()
+
     def _batches(self, batch_size: int):
-        """Worker-assembled host train batches (this rank's frames of each
-        global batch), uploaded ahead of the step."""
-        it = self.train_set.batches(batch_size, num_workers=self.num_workers,
-                                    local_slice=process_batch_slice(batch_size, self.mesh))
-        return prefetch_to_device(it, self.device)
+        """This rank's block of each global train batch, uploaded ahead of
+        the step."""
+        return prefetch_to_device(self._host_batches(self.train_set, batch_size), self.device)
 
     def _train_step(self, batch):
         return train_step(self.state, batch, self.step_generator(self.state.step), self.alpha, self.use_mse,
@@ -369,14 +436,17 @@ class Trainer:
                 )
         return total / max(count, 1)
 
-    def test(self, batch_size: int = 1, res_fpath: Optional[str] = None):
+    def test(self, batch_size: int = 1, res_fpath: Optional[str] = None, visualize_dir: Optional[str] = None):
         """Evaluate the test split: loss, detections (written to
         ``res_fpath`` as ``%d`` rows) and CLEAR ``(loss, moda, modp,
         precision, recall)``. On a mesh with a ``data`` axis each rank
         evaluates its frames of every full global batch and the ragged tail
         is padded with repeats of its last frame (`mvdetr_tpu/train/trainer.py:
         320-345`: the padded rows emit nothing, and the tail's loss, the mean
-        over the padded batch, is weighted by the tail's share)."""
+        over the padded batch, is weighted by the tail's share).
+
+        ``visualize_dir``: the figures of the last test batch go there
+        (:meth:`dump_figures`), in one process only, as in JAX."""
         t0 = time.time()
         total, count, aux = 0.0, 0, {}
         rows, cap_hits = [], 0
@@ -391,20 +461,22 @@ class Trainer:
 
         data = 1 if self.mesh is None else self.mesh.shape["data"]
         local = process_batch_slice(batch_size, self.mesh)
-        host_batches = self.test_set.batches(batch_size, shuffle=False, drop_last=data > 1,
-                                             num_workers=self.num_workers, local_slice=local)
+        host_batches = self._host_batches(self.test_set, batch_size, shuffle=False, drop_last=data > 1)
         frames = [int(f) for f in self.test_set.frames]
+        last_batch = None
         for bi, batch in enumerate(prefetch_to_device(host_batches, self.device)):
             aux, xys, keep = self._eval_step(batch)
             total += float(aux["loss"])
             count += 1
+            last_batch = batch
             emit(xys, keep, frames[bi * batch_size:(bi + 1) * batch_size] if data > 1 else np.asarray(batch["frame"]))
         tail = list(range(len(frames) - len(frames) % batch_size, len(frames))) if data > 1 else []
         if tail:
             from mvdetr_tpu_torch.data.dataset import collate
 
             padded = tail + [tail[-1]] * (batch_size - len(tail))
-            batch = batch_to_device(collate([self.test_set[i] for i in padded[local]]), self.device)
+            batch = collate([self.test_set[i] for i in padded[local]])
+            batch = batch_to_device(batch if self.mesh is None else shard_cams(batch, self.mesh), self.device)
             aux, xys, keep = self._eval_step(batch)
             total += float(aux["loss"]) * len(tail) / batch_size
             count += len(tail) / batch_size
@@ -426,6 +498,8 @@ class Trainer:
         det = np.asarray(rows, dtype=np.float64).reshape(-1, 3)
         if res_fpath is not None and (self.mesh is None or self.mesh.rank == 0):
             np.savetxt(res_fpath, det, "%d")
+        if visualize_dir is not None and last_batch is not None and (self.mesh is None or self.mesh.world_group is None):
+            self.dump_figures(last_batch, visualize_dir)
         gt = self.test_set.gt_array()
         # CLEAR matches on the integer-truncated rows as written to test.txt
         # via np.savetxt('%d') (`trainer.py:158-159`)
@@ -435,3 +509,71 @@ class Trainer:
             f"prec {precision:.1f}%, recall {recall:.1f}%, t {time.time() - t0:.1f}s"
         )
         return total / max(count, 1), moda, modp, precision, recall
+
+    FIGURES = ("world.jpg", "cam1_foot.jpg") + STAGE_FIGURES + ("shadow_points.jpg",)
+
+    def dump_figures(self, batch, out_dir: str) -> list:
+        """The ``--visualize`` figures of ``batch`` (`mvdetr_tpu/train/trainer.py:
+        398-468`): ``world.jpg`` (the predicted BEV heatmap over the target),
+        ``cam1_foot.jpg`` (the first camera's foot heatmap), the per-stage
+        figures (:func:`~mvdetr_tpu_torch.utils.visualize.save_forward_stage_figures`)
+        and ``shadow_points.jpg`` (:meth:`_dump_shadow_figure`). Returns the
+        paths written. Without matplotlib it writes none and logs, once per
+        trainer, one line saying so (JAX returns silently)."""
+        plt = matplotlib_pyplot()
+        if plt is None:
+            if not self._figures_skipped:
+                self.log(f"NOTE: --visualize skipped {', '.join(self.FIGURES)}: matplotlib is not installed")
+            self._figures_skipped = True
+            return []
+        os.makedirs(out_dir, exist_ok=True)
+        (world_heatmap, _), (imgs_heatmap, _, _) = inference_outputs(self.state.model, batch)
+        fig, (ax0, ax1) = plt.subplots(2, 1, figsize=(10, 6))
+        ax0.set_title("output")
+        ax0.imshow(to_numpy(torch.sigmoid(world_heatmap))[0, :, :, 0])
+        ax1.set_title("target")
+        ax1.imshow(to_numpy(torch.as_tensor(batch["world_gt"]["heatmap"]))[0, :, :, 0])
+        paths = [os.path.join(out_dir, "world.jpg")]
+        fig.savefig(paths[-1])
+        plt.close(fig)
+        fig, ax = plt.subplots()
+        ax.imshow(to_numpy(torch.sigmoid(imgs_heatmap))[0, :, :, 0])
+        ax.set_title("cam1 foot heatmap")
+        paths.append(os.path.join(out_dir, "cam1_foot.jpg"))
+        fig.savefig(paths[-1])
+        plt.close(fig)
+        paths += save_forward_stage_figures(self.state.model, batch, out_dir)
+        paths += self._dump_shadow_figure(batch, out_dir, plt)
+        return paths
+
+    def _dump_shadow_figure(self, batch, out_dir: str, plt) -> list:
+        """The attended points of the last encoder layer for the strongest
+        BEV query, per camera, over the predicted heatmap (the paper's shadow
+        figure, `deform_visualize.py:44-139` of the original MVDeTr). None
+        for a model without deformable attention."""
+        outputs, layers = capture_attention(self.state.model, batch)
+        if not layers:
+            return []
+        (world_heatmap, _), _ = outputs
+        hm = to_numpy(torch.sigmoid(world_heatmap))[0, :, :, 0]
+        hs2, ws2 = (v // 2 for v in self.train_set.Rworld_shape)
+        # the strongest BEV cell, snapped to the stride-2 query grid; its query in the first camera's block
+        y, x = np.unravel_index(np.argmax(hm), hm.shape)
+        qy, qx = min(int(y) // 2, hs2 - 1), min(int(x) // 2, ws2 - 1)
+        bev, _ = shadow_backprojected(self.train_set.rig, layers[-1]["sampling_locations"][0],
+                                      layers[-1]["attention_weights"][0], qy * ws2 + qx,
+                                      world_reduce=self.train_set.world_reduce, downsample=2)
+        fig, ax = plt.subplots(figsize=(10, 4))
+        ax.imshow(hm, cmap="gray")
+        colors = plt.cm.tab10(np.linspace(0, 1, len(bev)))
+        for cam, (pts, wts) in bev.items():
+            sel = wts > wts.max() * 0.1 if len(wts) else slice(None)
+            ax.scatter(pts[sel, 0] * 2, pts[sel, 1] * 2, s=40 * wts[sel] / (wts.max() + 1e-8),
+                       color=colors[cam], label=f"cam{cam + 1}", alpha=0.7)
+        ax.scatter([qx * 2], [qy * 2], marker="x", color="red", s=80)
+        ax.legend(fontsize=6)
+        ax.set_title("shadow attention (last layer, strongest query)")
+        path = os.path.join(out_dir, "shadow_points.jpg")
+        fig.savefig(path)
+        plt.close(fig)
+        return [path]

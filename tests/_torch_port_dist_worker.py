@@ -2,9 +2,15 @@
 
     python tests/_torch_port_dist_worker.py <port> <num_processes> <process_id> <axis> <outdir> <weights>
 
-``axis`` is ``data`` (the batch over the processes) or ``bev`` (the encoder's
-BEV rows over them); ``weights`` is a state dict of the tiny model that every
-step starts from. The rank joins the others over gloo on localhost; with
+``axis`` is ``data`` (the batch over the processes), ``bev`` (the encoder's
+BEV rows over them), ``view`` (the cameras of a 4-camera rig over them),
+``view_idle`` (a 3-camera rig on a view axis of 2, which does not divide
+it), ``view_gather`` (view 2 on the 4-camera rig in gather mode, whose
+encoder runs replicated over view), ``view_bev`` (4 processes: view 2 x
+bev 2 on the 4-camera rig) or ``data_view_bev`` (8 processes: data 2 x
+view 2 x bev 2);
+``weights`` is a state dict of the tiny model (of that rig) that every step
+starts from. The rank joins the others over gloo on localhost; with
 ``bev`` it first runs the sharded windowed attention on :func:`attention_inputs`
 (forward, and backward from a fixed cotangent) and writes the output and the
 three gradients to ``<outdir>/attention<process_id>.npz``. It then takes one
@@ -16,8 +22,10 @@ parameters after the step and a checksum of them to
 dropout, the one JAX's sharded step can be held to, to
 ``<outdir>/nodrop<process_id>.npz``. Then it runs the CLI for one epoch and
 its test with the multi-process flags (``--deterministic true``: the step is
-first taken twice and must repeat bitwise). The CLI's lines go to stdout;
-the test reads them from there.
+first taken twice and must repeat bitwise); with ``view`` the step without
+dropout too, and the CLI on the 4-camera rig with ``--view_shards 2``;
+the other view runs take the step only. The CLI's lines go to
+stdout; the test reads them from there.
 """
 
 import os
@@ -41,6 +49,12 @@ TINY = ["-d", "synthetic", "--device", "cpu", "--synthetic_cams", "2", "--synthe
         "--cls_thres", "0.3", "--batch_size", "2", "-j", "1"]
 STEP_SEED = 7
 ATTENTION_RADIUS = 3
+# per axis: the rig's cameras, the mesh's (view, bev) shards, whether the run takes the dropout-free step and the
+# CLI, and the attention mode
+RUNS = {"data": (2, (1, 1), True, "windowed"), "bev": (2, (1, 2), False, "windowed"),
+        "view": (4, (2, 1), True, "windowed"), "view_idle": (3, (2, 1), False, "windowed"),
+        "view_bev": (4, (2, 2), False, "windowed"), "data_view_bev": (4, (2, 2), False, "windowed"),
+        "view_gather": (4, (2, 1), False, "gather")}
 
 
 def attention_inputs():
@@ -55,22 +69,23 @@ def attention_inputs():
     return value, off, wgt, g
 
 
-def tiny_setup(mesh=None, weights=None, dropout=0.1):
+def tiny_setup(mesh=None, weights=None, dropout=0.1, num_cam=2, attn_mode="windowed"):
     """The tiny CLI run's first global training batch (unshuffled) and a
     fresh train state of its model on ``mesh`` at encoder ``dropout``, its
-    parameters and statistics ``weights`` (a state dict) if given."""
+    parameters and statistics ``weights`` (a state dict) if given, on a rig
+    of ``num_cam`` cameras, in ``attn_mode``."""
     from mvdetr_tpu_torch.data import FrameDataset, SyntheticScene
     from mvdetr_tpu_torch.geometry import make_synthetic_rig
     from mvdetr_tpu_torch.models import MVDeTr
     from mvdetr_tpu_torch.train import create_train_state
 
-    rig = make_synthetic_rig(num_cam=2, img_shape=(48, 96), worldgrid_shape=(32, 64))
+    rig = make_synthetic_rig(num_cam=num_cam, img_shape=(48, 96), worldgrid_shape=(32, 64))
     scene = SyntheticScene(rig, num_frame=6, num_person=8, seed=2021)
     train_set = FrameDataset(scene, train=True, world_reduce=2, img_reduce=12, world_kernel_size=10,
                              img_kernel_size=10, seed=2021)
     batch = next(train_set.batches(2, shuffle=False))
     model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, device="cpu", seed=2021, mesh=mesh,
-                            attn_mode="windowed", encoder_dropout=dropout)
+                            attn_mode=attn_mode, encoder_dropout=dropout)
     if weights is not None:
         model.load_state_dict(weights)
     return batch, create_train_state(model, lr=1e-3, total_steps=10)
@@ -93,7 +108,8 @@ def main():
     torch.set_num_threads(1)
     address = f"localhost:{port}"
     initialize_distributed(address, nproc, pid, "cpu")
-    mesh = make_mesh(num_bev_shards=nproc if axis == "bev" else 1)
+    cams, (views, bevs), full, attn_mode = RUNS[axis]
+    mesh = make_mesh(num_view_shards=views, num_bev_shards=bevs)
     axes = ("data", "view", "bev")
     print(f"rank {pid}: mesh {mesh.shape} at {[mesh.index(a) for a in axes]}, groups "
           f"{[a for a in axes if mesh.group(a) is not None]}", flush=True)
@@ -107,15 +123,18 @@ def main():
                  **{name: t.grad.numpy() for name, t in zip(("g_value", "g_offsets", "g_weights"), inputs)})
 
     step = make_sharded_train_step(mesh)
-    for name, dropout in (("step", 0.1), ("nodrop", 0.0))[:2 if axis == "data" else 1]:
-        batch, state = tiny_setup(mesh, weights, dropout)
+    for name, dropout in (("step", 0.1), ("nodrop", 0.0))[:2 if full else 1]:
+        batch, state = tiny_setup(mesh, weights, dropout, cams, attn_mode)
         _, aux = step(state, shard_batch(batch, mesh), torch.Generator().manual_seed(STEP_SEED), device="cpu")
         np.savez(os.path.join(outdir, f"{name}{pid}.npz"), checksum=np.int64(checksum(state.model)),
                  **step_record(state, aux))
 
-    flags = ["--epochs", "1", "--deterministic", "true", "--num_processes", str(nproc), "--process_id", str(pid),
-             "--coordinator_address", address, "--logdir", os.path.join(outdir, "run")]
-    cli.main(TINY + flags + (["--bev_shards", str(nproc)] if axis == "bev" else []))
+    if full or axis == "bev":
+        flags = ["--epochs", "1", "--deterministic", "true", "--num_processes", str(nproc), "--process_id",
+                 str(pid), "--coordinator_address", address, "--logdir", os.path.join(outdir, "run"),
+                 "--synthetic_cams", str(cams)]
+        cli.main(TINY + flags + (["--bev_shards", str(bevs)] if bevs > 1 else [])
+                 + (["--view_shards", str(views)] if views > 1 else []))
     sys.stdout.flush()
 
 

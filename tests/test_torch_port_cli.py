@@ -7,9 +7,10 @@
   ``_build/`` and ``__pycache__``);
 - ``--epochs_per_process 1`` then ``--resume_train`` continues at epoch 2 from
   the saved step, appending to the log; ``--resume`` reloads and tests;
-- every flag whose feature is not ported raises before any work, and so does
-  the default device without a card; the fusion variants, VGG-11 and
-  ``--remat_backbone`` each run a tiny epoch;
+- ``--visualize`` writes the figures of the test, ``--view_shards 2`` in one
+  process fails before any work, and so does the default device without a
+  card; the fusion variants, VGG-11 and ``--remat_backbone`` each run a tiny
+  epoch;
 - the sharding and multi-process flags on one process resolve or fail up
   front.
 
@@ -93,10 +94,20 @@ def test_epochs_per_process_then_resume_train_continues(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--view_shards", "2"], ["--visualize"]])
 def test_unported_flags_raise_before_any_work(flags, tmp_path, monkeypatch):
+    """The two flags that raised until camera sharding and visualisation
+    were ported: ``--view_shards 2`` in one process now fails up front, as
+    any mesh the processes cannot form does (nothing written), and
+    ``--visualize`` runs a tiny epoch whose test writes JAX's figures into
+    ``logdir/visualize``."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _run(TINY + flags)
-    assert list(tmp_path.iterdir()) == []  # no logdir, no build, nothing
+    if flags == ["--view_shards", "2"]:
+        with pytest.raises(ValueError, match="do not form the mesh data=1 x view=2 x bev=1 .*--num_processes 2"):
+            _run(TINY + flags)
+        assert list(tmp_path.iterdir()) == []  # no logdir, no build, nothing
+        return
+    trainer = _run(TINY + flags + ["--epochs", "1", "--logdir", "run"])
+    figures = tmp_path / "run" / "visualize"
+    assert sorted(p.name for p in figures.iterdir()) == sorted(trainer.FIGURES)
 
 
 @pytest.mark.parametrize("flags, error", [

@@ -56,6 +56,7 @@ from mvdetr_tpu_torch.interop import from_jax_variables
 from mvdetr_tpu_torch.models.layers import BatchNorm2d
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 from mvdetr_tpu_torch.parallel import Mesh, initialize_distributed, make_mesh, process_batch_slice
+from mvdetr_tpu_torch.parallel.mesh import rank_grid
 from mvdetr_tpu_torch.parallel.collectives import all_reduce_sum, gather_rows, reduce_sum, take_rows
 from mvdetr_tpu_torch.parallel.multihost import check_processes_per_host
 from mvdetr_tpu_torch.parallel.sharding import shard_batch
@@ -82,8 +83,13 @@ def test_one_process_mesh_has_no_groups():
         make_mesh(num_bev_shards=2)
     with pytest.raises(ValueError, match="needs as many torch.distributed processes"):
         make_mesh(world_size=2)
-    with pytest.raises(NotImplementedError, match="A.9b"):
+    with pytest.raises(ValueError, match="not divisible into 2 view x 1 bev"):
         make_mesh(num_view_shards=2)
+    # the view mesh's layout: 8 processes as data 2 x view 2 x bev 2, rank-major; a data x view slice per bev index
+    grid = rank_grid(8, num_view_shards=2, num_bev_shards=2)
+    assert grid.shape == (2, 2, 2) and [int(i) for i in np.argwhere(grid == 5)[0]] == [1, 0, 1]
+    assert sorted(grid[:, :, 1].reshape(-1).tolist()) == [1, 3, 5, 7] and grid[1, :, 0].tolist() == [4, 6]
+    assert rank_grid(4, num_view_shards=2).shape == (2, 2, 1)
 
 
 def test_batch_slice_and_shard_batch():
