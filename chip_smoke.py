@@ -170,11 +170,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     line, and their BEV heatmaps agree (on the CPU within 1e-4 of scale);
     (e) each variant's flag through ``cli.main``: 2 epochs of the recipe
     with ``--deterministic true``, its launches counted, MODA printed;
+    (k) the hard accuracy benchmark through its twin's ``run()``
+    (``mvdetr_tpu_torch/scripts/hard_benchmark.py``: seed 5, 15 epochs,
+    windowed, 4 points): FINAL MODA, MODP, precision, recall and wall time
+    printed, MODA >= 85 (the JAX package's worst-seed panel floor);
+    (l) the disk path at full width: a Wildtrack-format tree of 12 frames
+    of 1080x1920 PNGs (``data/trees.py``) in a temporary directory, every
+    frame decoded by ``data/png.py`` bitwise equal to the scene's render,
+    then one epoch of ``cli.main(["-d", "wildtrack", "--data_root", tree,
+    "--bf16", "true", "-b", "2", "-j", "4", ...])``: train and test
+    frame-sets/s, busy share and the decode's thread-ms per frame;
+    (m) the day-one rehearsal on that tree
+    (``mvdetr_tpu_torch/scripts/rehearse_day_one.py``): a seeded port model
+    at the flagship configuration saved as a reference
+    ``MultiviewDetector.pth`` and evaluated through ``--load_torch_ckpt``
+    in windowed mode at R=8, batch 1: B1 3 times per eval batch, no clamp
+    binding, the MODA line printed;
 11. one JSON line with each kernel's launches (by path: serve, train, cli,
     trainer, experiment, shadow: the n_points-8 serve, train and recipe
     runs, gather and aio: their serve and train runs, checkpoint: the
-    checkpoint evaluations; each variant's serve, train and cli runs; nccl:
-    the one-rank NCCL steps; composed_view_shards: the one-process
+    checkpoint evaluations; each variant's serve, train and cli runs;
+    hard_benchmark, disk and day_one: phases (k), (l) and (m); nccl: the
+    one-rank NCCL steps; composed_view_shards: the one-process
     composition of 7 view ranks; visualize: the full-width captures), one
     view rank's times by cameras and ranks (``view_rank``), B1 and B2's
     ``row_halo`` launches as rows of
@@ -1940,7 +1957,16 @@ CONVERGENCE_EPOCHS = 10
 WILDTRACK_CLI = ["-d", "synthetic", "--epochs", "2", "--synthetic_cams", "7", "--synthetic_img", "1080", "1920",
                  "--synthetic_grid", "480", "1440", "--synthetic_frames", "23", "--bf16", "true", "-b", "2",
                  "-j", "4"]
-HOST_STAGES = ("render", "augment warp", "resize", "targets", "collate", "upload")
+HOST_STAGES = ("render", "decode", "augment warp", "resize", "targets", "collate", "upload")
+# (k) the hard benchmark's pinned recipe (scripts/hard_benchmark.py: seed 5, 15 epochs, 4 points) in windowed mode;
+# its gate is the JAX package's worst-seed panel floor (the script's own --floor, 88, stays its exit rule)
+HARD_BENCH_RUN = dict(seed=5, epochs=15, n_points=4, attn_mode="windowed", quiet=True)
+HARD_BENCH_MODA = 85.0
+# (l) a Wildtrack-format PNG tree at full width: 12 frames (10 train frame sets, 5 steps of 2; 2 test frame sets),
+# then one epoch of the day-one command on it
+DISK_FRAMES, DISK_PERSONS, DISK_WRITERS = 12, 20, 8
+DISK_CLI = ["-d", "wildtrack", "--bf16", "true", "-b", "2", "-j", "4", "--epochs", "1"]
+DAY_ONE_RADIUS = 8
 
 
 class EpochProbe:
@@ -1950,7 +1976,8 @@ class EpochProbe:
     - each ``train_step`` / ``eval_step`` call is counted and bracketed by two
       CUDA events on the current stream: the card's span of the step;
     - the host's thread-seconds by data stage: rendering
-      (``SyntheticScene.image``, cached after a frame's first epoch), the
+      (``SyntheticScene.image``, cached after a frame's first epoch), a
+      dataset tree's decode (``adapters.load_image_rgb``), the
       augmentation warp and the resize (the native library), the targets,
       collation and the upload (pinning and queueing the copies);
     - ``Trainer.train_epoch`` and ``Trainer.test`` record, while
@@ -2046,10 +2073,11 @@ class EpochProbe:
 
     def install(self) -> "EpochProbe":
         from mvdetr_tpu_torch import native
-        from mvdetr_tpu_torch.data import dataset, prefetch, source
+        from mvdetr_tpu_torch.data import adapters, dataset, prefetch, source
         from mvdetr_tpu_torch.train import trainer
 
         self._patch(source.SyntheticScene, "image", self._timed("render"))
+        self._patch(adapters, "load_image_rgb", self._timed("decode"))
         self._patch(native, "warp_image_u8", self._timed("augment warp"))
         self._patch(native, "resize_u8", self._timed("resize"))
         self._patch(dataset, "build_targets", self._timed("targets"))
@@ -2398,6 +2426,123 @@ def variant_cli_phase(probe) -> dict:
     return launches
 
 
+def hard_benchmark_phase(probe) -> dict:
+    """(k) the hard benchmark's pinned recipe on the card through its twin's
+    ``run()`` (``mvdetr_tpu_torch/scripts/hard_benchmark.py``: 6 cameras at
+    3.5 m, 270x480 frames, a 256x512 grid, 24 people, seed 5, 15 epochs,
+    windowed at 4 points): the final MODA must reach HARD_BENCH_MODA."""
+    from mvdetr_tpu_torch.scripts import hard_benchmark
+
+    probe.tests = []
+    result, launches = counted_run("hard benchmark", probe, lambda: hard_benchmark.run(**HARD_BENCH_RUN))
+    print(f"hard benchmark (seed {HARD_BENCH_RUN['seed']}, {HARD_BENCH_RUN['epochs']} epochs, windowed): FINAL MODA "
+          f"{result['moda']:.1f}, MODP {result['modp']:.1f}, precision {result['precision']:.1f}, recall "
+          f"{result['recall']:.1f}; {result['seconds']:.1f} s of training and tests; MODA at the tests "
+          f"{[round(t[1], 1) for t in probe.tests]}")
+    check(result["moda"] >= HARD_BENCH_MODA, f"hard benchmark: MODA {result['moda']} < {HARD_BENCH_MODA}")
+    return launches
+
+
+def write_disk_tree(root: str):
+    """A Wildtrack-format tree of DISK_FRAMES frames (``data/trees.py``): the
+    calibrations and annotations, then every frame as a PNG written by
+    DISK_WRITERS threads (zlib releases the interpreter lock). Returns the
+    scene (its renders cached) and the write's seconds and bytes."""
+    from mvdetr_tpu_torch.data.png import write_png
+    from mvdetr_tpu_torch.data.trees import image_path, wildtrack_like_scene, write_wildtrack_tree
+
+    t0 = time.perf_counter()
+    scene = wildtrack_like_scene(num_frame=DISK_FRAMES, num_person=DISK_PERSONS)
+    write_wildtrack_tree(root, scene, with_images=False)
+    keys = [(cam, frame) for frame in scene.frames() for cam in range(scene.rig.num_cam)]
+    for cam in range(scene.rig.num_cam):
+        os.makedirs(os.path.dirname(image_path(root, cam, 0)), exist_ok=True)
+    with ThreadPoolExecutor(DISK_WRITERS) as pool:
+        list(pool.map(lambda key: write_png(image_path(root, *key), scene.image(*key)), keys))
+    nbytes = sum(os.path.getsize(image_path(root, *key)) for key in keys)
+    return scene, time.perf_counter() - t0, nbytes
+
+
+def disk_phase(probe, root: str) -> dict:
+    """(l) the disk path at full width: a Wildtrack-format PNG tree of
+    DISK_FRAMES frames of 1080x1920 (``write_disk_tree``), every frame
+    decoded by ``data/png.py`` bitwise equal to the scene's own render, then
+    one epoch of ``cli.main(["-d", "wildtrack", "--data_root", root, ...])``
+    (bf16, batch 2, 4 loader threads): the train and test frame-sets/s, the
+    card's busy share and the decode's thread-ms per frame."""
+    from mvdetr_tpu_torch.data.png import decode_png
+    from mvdetr_tpu_torch.data.trees import image_path
+
+    scene, write_s, nbytes = write_disk_tree(root)
+    keys = [(cam, frame) for frame in scene.frames() for cam in range(scene.rig.num_cam)]
+    t0 = time.perf_counter()
+    bad = [key for key in keys if not np.array_equal(decode_png(image_path(root, *key)), scene.image(*key))]
+    decode_s = time.perf_counter() - t0
+    print(f"disk tree: {len(keys)} 1080x1920 PNGs, {nbytes / 1e6:.1f} MB ({nbytes / len(keys) / 1e6:.2f} MB each), "
+          f"written in {write_s:.1f} s by {DISK_WRITERS} threads; decoded in {decode_s * 1e3 / len(keys):.1f} ms "
+          f"each (one thread), {len(keys) - len(bad)} of {len(keys)} bitwise the scene's renders")
+    check(not bad, f"disk tree: decoded frames differ from the renders at (camera, frame) {bad[:5]}")
+
+    probe.epochs, probe.tests = [], []
+    try:
+        (trainer, _), launches = counted_run("cli disk", probe, lambda: run_cli(DISK_CLI + ["--data_root", root]))
+    finally:
+        epochs, probe.epochs = probe.epochs, None
+    num_cam = trainer.train_set.rig.num_cam
+    for rec, label in zip(epochs, ("epoch 1 train", "epoch 1 test", "final test")):
+        stages = ", ".join(f"{k} {v:.2f}" for k, v in rec["host_ms_per_frame_set"].items())
+        print(f"cli disk {label}: {rec['frame_sets']} frame sets, {rec['steps']} steps in {rec['wall_s']:.3f} s, "
+              f"{rec['frame_sets_per_s']:.3f} frame-sets/s, card busy share {rec['busy_share']:.3f}; after the "
+              f"{rec['fill_s']:.3f} s fill {rec['after_fill_frame_sets_per_s']:.3f} frame-sets/s, busy share "
+              f"{rec['after_fill_busy_share']:.3f}; peak memory {rec['peak_gib']:.2f} GiB; decode "
+              f"{rec['host_ms_per_frame_set']['decode'] / num_cam:.2f} thread-ms per frame; host ms per frame set "
+              f"(thread time): {stages}")
+        check(rec["frame_sets"] > 0 and rec["host_ms_per_frame_set"]["decode"] > 0, f"cli disk {label}: no decode")
+    check(len(epochs) == 3 and all(math.isfinite(t[0]) for t in probe.tests), f"cli disk: {len(epochs)} records, "
+          f"tests {probe.tests}")
+    print(f"cli disk: MODA {[round(t[1], 1) for t in probe.tests]} (random init, 1 epoch: no bound)")
+    return launches
+
+
+def day_one_phase(probe, root: str) -> dict:
+    """(m) the day-one rehearsal on (l)'s tree, as
+    ``mvdetr_tpu_torch/scripts/rehearse_day_one.py`` runs it: a seeded port
+    model at the full flagship configuration saved as a reference
+    ``MultiviewDetector.pth``, evaluated by ``cli.main`` with
+    ``--load_torch_ckpt`` in windowed mode at radius DAY_ONE_RADIUS, batch 1:
+    B1 three times per eval batch and no clamp binding; its MODA line is
+    printed (random weights: no bound)."""
+    from mvdetr_tpu_torch.data import WildtrackScene
+    from mvdetr_tpu_torch.scripts import rehearse_day_one
+
+    tmp = tempfile.mkdtemp(prefix="mvdetr_day_one_")
+    try:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "MultiviewDetector.pth")
+        size_mib = rehearse_day_one.save_reference_checkpoint(ckpt, WildtrackScene(root).rig)
+        save_s = time.perf_counter() - t0
+        probe.tests = []
+        t0 = time.perf_counter()
+        argv = rehearse_day_one.day_one_argv(root, ckpt, "windowed", DAY_ONE_RADIUS)
+        (trainer, log), launches = counted_run("day one", probe, lambda: run_cli(argv, trains=False),
+                                               per_eval=(3, 0, 0), trains=False)
+        eval_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    model = trainer.state.model
+    radius = model.world_feat.encoder.layers[0].self_attn.radius
+    moda = [line for line in log.splitlines() if line.startswith("Test: loss")]
+    clip = [line for line in log.splitlines() if line.startswith("Eval offset_clip_fraction")]
+    print(f"day one: checkpoint {size_mib:.1f} MiB saved in {save_s:.1f} s; evaluated in {eval_s:.1f} s "
+          f"({model.world_feat.mode} attention, R={radius}, {model.warp_convention} warp); {clip}; "
+          f"{moda[-1] if moda else 'no test line'}")
+    check(model.world_feat.mode == "windowed" and radius == DAY_ONE_RADIUS,
+          f"day one: {model.world_feat.mode}, R={radius}")
+    check(model.warp_convention == "kornia" and trainer.state.step == 0, "day one: not the checkpoint's evaluation")
+    check(len(moda) == 1 and clip == ["Eval offset_clip_fraction 0.0000"], f"day one: {moda}, {clip}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2523,6 +2668,16 @@ def main() -> int:
         ckpt = checkpoint_phase(probe)
         for config, launches in variant_cli_phase(probe).items():
             variant_launches[config]["cli"] = launches
+        script_launches = {"hard_benchmark": hard_benchmark_phase(probe)}
+        torch.cuda.empty_cache()
+        tree = tempfile.mkdtemp(prefix="mvdetr_tree_")
+        try:
+            root = os.path.join(tree, "Wildtrack")
+            script_launches["disk"] = disk_phase(probe, root)
+            torch.cuda.empty_cache()
+            script_launches["day_one"] = day_one_phase(probe, root)
+        finally:
+            shutil.rmtree(tree, ignore_errors=True)
     finally:
         probe.uninstall()
     print("full-width medians and peaks (bf16, batch 2; " + torch.cuda.get_device_name(0) + "): " + "; ".join(
@@ -2558,8 +2713,13 @@ def main() -> int:
         by_path["visualize"] = visualize_launches[name]
         for config, runs in variant_launches.items():
             by_path[config] = sum(run[name] for run in runs.values())
+        for path, launches in script_launches.items():
+            by_path[path] = launches[name]
     check(records[2][4]["gather"] > 0 and records[2][4]["aio"] > 0, "gather and aio: B3 launched no time")
     check(records[0][4]["checkpoint"] > 0, "checkpoint: B1 launched no time")
+    for path, per_step in (("hard_benchmark", (3, 3, 1)), ("disk", (3, 3, 1)), ("day_one", (3, 0, 0))):
+        for rec, kernel_launches in zip(records, per_step):
+            check(kernel_launches == 0 or rec[4][path] > 0, f"{path}: {rec[0]} launched no time")
     for config in VARIANTS:
         for rec, kernel_launches in zip(records, FULL_WIDTH[config][3]):
             check(kernel_launches == 0 or rec[4][config] > 0, f"{config}: {rec[0]} launched no time")
@@ -2638,7 +2798,9 @@ def main() -> int:
         + trainer_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"],
         "launches_by_path": {"experiment": b5[variant]["launches"],
                              "cli": cli_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"],
-                             "trainer": trainer_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"]},
+                             "trainer": trainer_launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"],
+                             **{path: launches[f"{lane_broadcast.KERNEL_NAME}:{variant}"]
+                                for path, launches in script_launches.items()}},
         "max_abs_err": max(rec[big]["err"], rec[tile]["err"]),
         "ms": rec[big]["ms"],
         "plain_ms": rec[big]["plain_ms"],

@@ -17,7 +17,11 @@ File-format and convention contracts from the original MVDeTr's
   (`frameDataset.py:90-127`),
 - POM rectangles for self-tests (`Wildtrack.py:102-118`).
 
-Images decode with cv2 where it is installed, else PIL, else
+A ``.png`` frame always decodes through the port's own codec
+(:func:`mvdetr_tpu_torch.data.png.decode_png`: ``zlib`` and the native
+library), on every machine, so a PNG tree gives the same bytes by the same
+code here and on the card's machine, which has neither cv2 nor PIL. Other
+formats (JPEG) decode with cv2 where it is installed, else PIL, else
 :func:`load_image_rgb` raises: this is the only module of the port's data
 path that imports either.
 """
@@ -32,6 +36,7 @@ from typing import Dict, List
 
 import numpy as np
 
+from mvdetr_tpu_torch.data.png import decode_png
 from mvdetr_tpu_torch.data.source import FrameAnnotation
 from mvdetr_tpu_torch.geometry.projection import extrinsic_from_rvec_tvec
 from mvdetr_tpu_torch.geometry.rig import CameraRig
@@ -45,9 +50,12 @@ _MULTIVIEWX_EXTR = [f"extr_Camera{i}.xml" for i in range(1, 7)]
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """JPEG/PNG decode to RGB uint8: cv2 where it is installed (it decodes
-    outside the interpreter lock, so the threaded loader scales), else PIL;
-    with neither, raises."""
+    """Decode to RGB uint8. A ``.png`` goes through :func:`decode_png`
+    (never cv2 or PIL); any other file through cv2 where it is installed
+    (it decodes outside the interpreter lock, so the threaded loader
+    scales), else PIL; with neither, raises."""
+    if path.lower().endswith(".png"):
+        return decode_png(path)
     try:
         import cv2
     except ImportError:

@@ -9,8 +9,10 @@ threads warp and resize in parallel. A missing compiler or a failed build
 raises; nothing falls back to numpy code with other semantics.
 
 Functions: :func:`splat_gaussian` (target heatmaps), :func:`greedy_nms`,
-:func:`warp_image_u8` (the augmentation warp, bilinear) and
-:func:`resize_u8` (``cv2.resize`` with ``INTER_LINEAR``, the same bytes).
+:func:`warp_image_u8` (the augmentation warp, bilinear),
+:func:`resize_u8` (``cv2.resize`` with ``INTER_LINEAR``, the same bytes)
+and :func:`png_unfilter` (the row filters of
+:func:`mvdetr_tpu_torch.data.png.decode_png`).
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ def load_library() -> ctypes.CDLL:
     lib.dataio_greedy_nms.argtypes = [_f32p, _f32p, _i64, ctypes.c_double, _u8p]
     lib.dataio_warp_u8.argtypes = [_u8p, _i64, _i64, _f64p, ctypes.c_int, _u8p]
     lib.dataio_resize_u8.argtypes = [_u8p, _i64, _i64, _i64, _u8p, _i64, _i64]
-    for fn in (lib.dataio_splat_gaussian, lib.dataio_greedy_nms, lib.dataio_warp_u8, lib.dataio_resize_u8):
+    lib.png_unfilter.argtypes = [_u8p, _i64, _i64, _i64, _u8p]
+    for fn in (lib.dataio_splat_gaussian, lib.dataio_greedy_nms, lib.dataio_warp_u8, lib.dataio_resize_u8,
+               lib.png_unfilter):
         fn.restype = ctypes.c_int
     return lib
 
@@ -143,4 +147,22 @@ def resize_u8(img: np.ndarray, out_hw) -> np.ndarray:
     rc = load_library().dataio_resize_u8(_ptr(img, _u8p), img.shape[0], img.shape[1], img.shape[2], _ptr(out, _u8p),
                                          ho, wo)
     _check(rc, "resize_u8")
+    return out
+
+
+def png_unfilter(raw, height: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters: ``raw`` holds ``height`` rows of a filter
+    type byte and ``row_bytes`` filtered bytes (an inflated 8-bit,
+    non-interlaced IDAT stream; ``bytes`` or a uint8 array), ``bpp`` the
+    bytes per pixel. Returns the [height, row_bytes] uint8 rows; raises on
+    a short stream or a filter type outside 0-4."""
+    src = np.frombuffer(raw, dtype=np.uint8) if isinstance(raw, (bytes, bytearray, memoryview)) else raw
+    src = np.ascontiguousarray(src, dtype=np.uint8).reshape(-1)
+    if src.size != height * (row_bytes + 1):
+        raise ValueError(f"png_unfilter: {src.size} bytes for {height} rows of 1 + {row_bytes}")
+    out = np.empty((height, row_bytes), dtype=np.uint8)
+    rc = load_library().png_unfilter(_ptr(src, _u8p), height, row_bytes, bpp, _ptr(out, _u8p))
+    if rc == 2:
+        raise ValueError("png_unfilter: a row's filter type is not one of 0-4 (None, Sub, Up, Average, Paeth)")
+    _check(rc, "png_unfilter")
     return out

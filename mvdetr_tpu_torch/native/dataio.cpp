@@ -10,6 +10,10 @@
 // and one function that the JAX package leaves to cv2:
 //   - dataio_resize_u8: cv2.resize(INTER_LINEAR) of a uint8 image, with
 //     OpenCV's 11-bit fixed-point coefficients and its rounding.
+// and the row filters of the PNG decoder (data/png.py), which the JAX
+// package leaves to cv2 or PIL:
+//   - png_unfilter: undoes the five PNG filters (None, Sub, Up, Average,
+//     Paeth; PNG specification, section 9) of 8-bit, non-interlaced rows.
 //
 // Every function is pure arithmetic on caller-owned buffers and returns 0 or
 // an error code; ctypes releases the interpreter lock around each call, so
@@ -215,6 +219,53 @@ int dataio_resize_u8(const uint8_t* src, int64_t H, int64_t W, int64_t C, uint8_
     for (int64_t x = 0; x < row; ++x) {
       const int32_t v = (((b0 * (r0[x] >> 4)) >> 16) + ((b1 * (r1[x] >> 4)) >> 16) + 2) >> 2;
       d[x] = static_cast<uint8_t>(std::min(255, std::max(0, v)));
+    }
+  }
+  return 0;
+}
+
+// src [H, 1 + row_bytes] uint8: each row's filter type byte, then its
+// filtered bytes (the inflated IDAT stream of an 8-bit non-interlaced PNG);
+// bpp the bytes per pixel (1-4) -> dst [H, row_bytes] uint8, the unfiltered
+// rows. Each row reads the previous unfiltered row (zeros above the first)
+// and its own bytes bpp to the left (zeros before the first pixel). Paeth's
+// predictor is computed in int, as the specification requires. Returns 2
+// for a filter type byte outside 0-4.
+int png_unfilter(const uint8_t* src, int64_t H, int64_t row_bytes, int64_t bpp, uint8_t* dst) {
+  if (H < 0 || row_bytes < 0 || bpp < 1 || bpp > 8) return 1;
+  std::vector<uint8_t> zeros(static_cast<size_t>(row_bytes), 0);
+  for (int64_t y = 0; y < H; ++y) {
+    const uint8_t* in = src + y * (row_bytes + 1);
+    const uint8_t type = in[0];
+    ++in;
+    uint8_t* out = dst + y * row_bytes;
+    const uint8_t* up = y > 0 ? dst + (y - 1) * row_bytes : zeros.data();
+    switch (type) {
+      case 0:
+        std::copy(in, in + row_bytes, out);
+        break;
+      case 1:
+        for (int64_t i = 0; i < row_bytes; ++i) out[i] = static_cast<uint8_t>(in[i] + (i >= bpp ? out[i - bpp] : 0));
+        break;
+      case 2:
+        for (int64_t i = 0; i < row_bytes; ++i) out[i] = static_cast<uint8_t>(in[i] + up[i]);
+        break;
+      case 3:
+        for (int64_t i = 0; i < row_bytes; ++i) {
+          const int left = i >= bpp ? out[i - bpp] : 0;
+          out[i] = static_cast<uint8_t>(in[i] + ((left + up[i]) >> 1));
+        }
+        break;
+      case 4:
+        for (int64_t i = 0; i < row_bytes; ++i) {
+          const int a = i >= bpp ? out[i - bpp] : 0, b = up[i], c = i >= bpp ? up[i - bpp] : 0;
+          const int p = a + b - c, pa = std::abs(p - a), pb = std::abs(p - b), pc = std::abs(p - c);
+          const int pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          out[i] = static_cast<uint8_t>(in[i] + pred);
+        }
+        break;
+      default:
+        return 2;
     }
   }
   return 0;

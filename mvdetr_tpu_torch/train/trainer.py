@@ -426,6 +426,9 @@ class Trainer:
                          "no trace was written (the window starts at batch 2)")
         total = float(torch.stack(losses_dev).sum()) if losses_dev else 0.0
         self.log(f"Train epoch {epoch} done: loss {total / max(count, 1):.6f}, t {time.time() - t0:.1f}s")
+        if self.device.type == "cuda":
+            self.log(f"Train epoch {epoch}: peak device memory "
+                     f"{torch.cuda.max_memory_allocated(self.device) / 2**30:.2f} GiB")
         if count and "offset_clip_fraction" in aux:
             clip_frac = float(aux["offset_clip_fraction"])
             if clip_frac > 0.05:

@@ -16,7 +16,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "mvdetr_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvdetr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvdetr_tpu", "tests")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -52,7 +52,9 @@ def test_package_and_chip_smoke_import_no_jax():
     for name in ("ops.msda_windowed", "ops.warp", "ops.sampling", "losses", "data.targets", "train.trainer",
                  "train.optim", "train.state", "models.layers", "ops.lane_broadcast", "scripts.exp_vpu_broadcast",
                  "cli", "evaluation.clear", "native", "data.augment", "data.source", "data.dataset", "data.adapters",
-                 "data.prefetch", "utils.logger", "utils.profiling", "train.checkpoint"):
+                 "data.prefetch", "utils.logger", "utils.profiling", "train.checkpoint", "data.png", "data.trees",
+                 "scripts.hard_benchmark", "scripts.stress_ab", "scripts.tune_convergence",
+                 "scripts.rehearse_realscale", "scripts.full_scale_run", "scripts.rehearse_day_one"):
         assert f"mvdetr_tpu_torch.{name}" in report["imported"], name
 
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -135,9 +137,11 @@ def _all_imports(path: Path):
 
 def test_data_path_imports_no_cv2_or_pil_but_for_the_image_decode():
     """The card's machine has neither cv2 nor PIL: no module of the port's
-    data path imports them, except ``data/adapters.py``'s ``load_image_rgb``
-    (real datasets' JPEGs, which raises a clear error without both)."""
-    for path in sorted((PACKAGE / "data").rglob("*.py")) + sorted((PACKAGE / "native").rglob("*.py")):
+    data path or of its scripts imports them, except ``data/adapters.py``'s
+    ``load_image_rgb`` (real datasets' JPEGs, which raises a clear error
+    without both); a PNG (``data/png.py``, ``data/trees.py``) needs neither."""
+    for path in sorted((PACKAGE / "data").rglob("*.py")) + sorted((PACKAGE / "native").rglob("*.py")) + sorted(
+            (PACKAGE / "scripts").rglob("*.py")):
         found = [(name, line) for name, line in _all_imports(path) if name in ("cv2", "PIL")]
         if path.name == "adapters.py":
             tree = ast.parse(path.read_text())
