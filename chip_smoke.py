@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (``mvdetr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--lane_parent OTHER.cu]
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -86,7 +86,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    against its plain version at T=1104 and T=151,200 rows (within 1e-5 of
    the largest output), the variants against each other (``repeat`` tiles,
    so it must differ from the three broadcasts), the plain versions timed;
-   then the experiment's entry point
+   each variant against its plain version at the stress cases
+   (``LANE_STRESS_CASES``: T = 1, 17 and 1103 rows, ragged against the
+   kernels' tiles, 8, 56 and 64 heads, 0, 1 and 81 repetitions); with
+   ``--lane_parent OTHER.cu`` (another revision of
+   ``csrc/lane_broadcast.cu``) also that source's time for each variant at
+   both sizes, in turns with this one (other, this, this, other); then the
+   experiment's entry point
    (``mvdetr_tpu_torch.scripts.exp_vpu_broadcast.main``) as the counted run,
    which times every variant at 81 repetitions and at 1, at both sizes;
 6. a small model on the card against the same weights on the CPU, in f32:
@@ -207,7 +213,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     error, times and bound, B1/B2/B3's times at the shadow shapes
     (``*_shadow``), B3's at gather's (``*_gather``, aio's under
     ``aio_gather``) and deform_conv's (``*_deform_conv``), and the gather
-    layer's times.
+    layer's times; B5's rows carry the parent's time (``parent_ms``, null
+    without ``--lane_parent``) and the stress cases' largest error
+    (``stress_rel_err``, of max|ref|).
 
 The line before the last is the card's ``name, power.limit`` as nvidia-smi
 reports them; the last line is ``{"ok": true, "device": {...}}``. Imports
@@ -216,7 +224,9 @@ nothing of JAX. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import copy
+import functools
 import json
 import math
 import os
@@ -228,6 +238,7 @@ import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -238,7 +249,10 @@ KERNEL_ATOL = 5e-5  # B1: f32 sums of L*P=28 samples in another order; outputs |
 BWD_ATOL = 1e-4  # B2: f32 sums of up to a few hundred terms in another order, of scale max(1, max|ref|)
 WARP_RTOL = 2.0**-6  # B3 in bf16: the final rounding may land one bf16 step (2^-8..2^-7 of the value) apart
 SMALL_MODEL_RTOL = 2e-2  # card stages the attention value in bf16 (2^-9 relative), the CPU keeps f32
-LANE_RTOL = 1e-5  # B5, of max|ref|: 81 f32 sums that differ only by FMA contraction, the shuffle tree, the tf32 split
+LANE_RTOL = 1e-5  # B5, of max|ref|: 81 f32 sums differing only by FMA contraction, the head sum's order, the tf32 split
+# B5's stress cases (T, LM, reps): rows ragged against every kernel's task and block, 8, 56 (the flagship) and 64 heads,
+# 0, 1 and 81 repetitions
+LANE_STRESS_CASES = [(t, lm, reps) for t in (1, 17, 1103) for lm in (8, 56, 64) for reps in (0, 1, 81)]
 # B2's g_value where two BEV shards' halo gradients add (of max(1, max|ref|)): one f32 partial sum split in two, each
 # of ~100 terms of order 0.01 at the flagship shape, so a few f32 ulps of the sum
 ROW_HALO_ATOL = 1e-5
@@ -1469,17 +1483,51 @@ def variants_card_vs_cpu() -> None:
     check(l0 == l1 and not differ, "small remat: the step with remat differs from the step without on the card")
 
 
-def lane_phase() -> dict:
+def lane_stress(rng) -> float:
+    """B5: each variant against its plain version at every case of
+    ``LANE_STRESS_CASES``, within ``LANE_RTOL`` of max|ref|; returns the
+    largest error."""
+    import torch
+
+    from mvdetr_tpu_torch.ops import lane_broadcast as lb
+
+    worst = 0.0
+    for t, lm, reps in LANE_STRESS_CASES:
+        x = torch.from_numpy(rng.standard_normal((t, lm), dtype=np.float32)).cuda()
+        v = torch.from_numpy(rng.standard_normal((t, lm * lb.D), dtype=np.float32)).to("cuda", torch.bfloat16)
+        dlk = torch.from_numpy(rng.standard_normal((t, lm * lb.D), dtype=np.float32)).cuda()
+        for name in lb.VARIANTS:
+            if name in lb.BROADCAST_VARIANTS:
+                out, ref = lb.lane_broadcast(x, v, name, reps), lb.lane_broadcast_plain(x, v, name, reps)
+            else:
+                out, ref = lb.lane_reduce(dlk, name, reps), lb.lane_reduce_plain(dlk, name, reps)
+            torch.cuda.synchronize()
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"B5 {name} {t}x{lm} x{reps}: bad output")
+            check(err <= LANE_RTOL * scale, f"B5 {name} T={t} LM={lm} reps={reps}: max abs error {err} > "
+                  f"{LANE_RTOL} x {scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+    print(f"B5 stress: {len(LANE_STRESS_CASES)} cases (T 1, 17, 1103; LM 8, 56, 64; reps 0, 1, 81) x "
+          f"{len(lb.VARIANTS)} variants against the plain versions, largest error {worst:.3e} of max|ref|")
+    return worst
+
+
+def lane_phase(parent: str | None = None) -> dict:
     """B5: each variant against its plain version and the variants against
-    each other at both sizes, then the experiment's entry point as the
-    counted run. Returns a record per variant."""
+    each other at both sizes, then at the stress cases; with ``parent``
+    (another revision of the source) that source's times in turns with this
+    one's; then the experiment's entry point as the counted run. Returns a
+    record per variant."""
     import torch
 
     from mvdetr_tpu_torch.ops import lane_broadcast as lb
     from mvdetr_tpu_torch.scripts import exp_vpu_broadcast as exp
+    from mvdetr_tpu_torch.scripts import lane_vs_source as lvs
 
     lk = lb.LM * lb.D
     recs = {name: {"by_T": {}} for name in lb.VARIANTS}
+    tmp = tempfile.TemporaryDirectory() if parent else None
+    parent_lib = lvs.build_other(Path(parent), Path(tmp.name)) if parent else None
     for t in exp.SIZES:
         inputs = exp.make_inputs(t, "cuda")
         outs, scales = {}, {}
@@ -1496,10 +1544,15 @@ def lane_phase() -> dict:
             check(bool(torch.isfinite(out).all()), f"B5 {name} T={t}: non-finite output")
             check(err <= LANE_RTOL * scale, f"B5 {name} T={t}: max abs error {err} > {LANE_RTOL} x {scale}")
             outs[name], scales[name] = out, scale
-            rec = {"err": err, "plain_ms": cuda_ms(plain, 3), **bound(nbytes, flops)}
+            rec = {"err": err, "plain_ms": cuda_ms(plain, 3), **bound(nbytes, flops), "parent_ms": None}
             recs[name]["by_T"][t] = rec
             print(f"B5 {name} T={t}: max_abs_err={err:.3e} (max |ref| {scale:.1f}), plain {rec['plain_ms']:.3f} ms, "
                   f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+            if parent_lib is not None:
+                turns = lvs.in_turns(functools.partial(lvs.launch, parent_lib, name, inputs, lb.REPS),
+                                     functools.partial(lvs.launch, lb.load_library(), name, inputs, lb.REPS), 20)
+                rec["parent_ms"] = float(np.mean(turns["other"]))
+                print(f"B5 {name} T={t}: parent {turns['other']} ms, this {turns['this']} ms (in turns)")
         for a, b in (("matmul", "jnp_repeat"), ("matmul", "bcast3d"), ("r_matmul", "r_reshape_sum")):
             diff = float((outs[a] - outs[b]).abs().max())
             print(f"B5 T={t}: {a} vs {b} max abs difference {diff:.3e}")
@@ -1516,6 +1569,9 @@ def lane_phase() -> dict:
               f"the {lb.REPS}-repetition function)")
         del inputs, outs, x, v, dlk
         torch.cuda.empty_cache()
+    if tmp is not None:
+        tmp.cleanup()
+    stress_err = lane_stress(np.random.default_rng(1))
 
     lb.lane_broadcast.launches.clear()
     lb.lane_reduce.launches.clear()
@@ -1524,6 +1580,7 @@ def lane_phase() -> dict:
     for name in lb.VARIANTS:
         check(launches.get(name, 0) > 0, f"B5: the experiment launched {name} no time")
         recs[name]["launches"] = launches[name]
+        recs[name]["stress_rel_err"] = stress_err
         for t in exp.SIZES:
             recs[name]["by_T"][t].update(times[(name, t)])
     return recs
@@ -2589,9 +2646,13 @@ def day_one_phase(probe, root: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--lane_parent", default=None,
+                        help="another revision of csrc/lane_broadcast.cu, timed beside B5 in turns")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2666,7 +2727,7 @@ def main() -> int:
     shadow = shadow_kernel_phase(rng, rig)
     gather = gather_kernel_phase(rng)
     deform = deform_conv_phase(rng)
-    b5 = lane_phase()
+    b5 = lane_phase(args.lane_parent)
 
     small_model_card_vs_cpu()
     variants_card_vs_cpu()
@@ -2858,7 +2919,10 @@ def main() -> int:
         "T": big,
         "ms_1rep": rec[big]["ms_1rep"],
         "us_per_added_rep": rec[big]["us_per_added_rep"],
-        f"at_T{tile}": {k: rec[tile][k] for k in ("ms", "ms_1rep", "us_per_added_rep", "plain_ms", "bound_ms")},
+        "parent_ms": rec[big]["parent_ms"],
+        "stress_rel_err": b5[variant]["stress_rel_err"],
+        f"at_T{tile}": {k: rec[tile][k]
+                        for k in ("ms", "ms_1rep", "us_per_added_rep", "plain_ms", "bound_ms", "parent_ms")},
     } for variant, rec in ((v, r["by_T"]) for v, r in b5.items())]
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -102,10 +102,9 @@ def lane_reduce_plain(x: torch.Tensor, variant: str, reps: int = REPS) -> torch.
     return acc
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's shared library."""
-    lib = ctypes.CDLL(str(kernel_build.build(KERNEL_NAME)))
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a library built from ``csrc/lane_broadcast.cu``
+    (every revision shares them)."""
     lib.lane_broadcast_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.lane_broadcast_launch.restype = ctypes.c_int
     lib.lane_reduce_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -115,25 +114,52 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel's shared library."""
+    return bind(ctypes.CDLL(str(kernel_build.build(KERNEL_NAME))))
+
+
+def launch(lib: ctypes.CDLL, variant: str, x: torch.Tensor, v: torch.Tensor | None, reps: int) -> torch.Tensor:
+    """One launch of ``variant`` through ``lib``'s C entry, on inputs the
+    wrappers have checked (``v`` is the broadcast's, None for a reduce);
+    returns the output. Nothing is launched for T = 0."""
+    broadcast = variant in BROADCAST_VARIANTS
+    t, lm = x.shape[0], x.shape[1] if broadcast else x.shape[1] // D
+    out = torch.empty((t, lm * D if broadcast else lm), dtype=torch.float32, device=x.device)
+    if t == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if broadcast:
+            err = lib.lane_broadcast_launch(x.data_ptr(), v.data_ptr(), out.data_ptr(), t, lm, int(reps),
+                                            _VARIANT_CODE[variant], stream)
+        else:
+            err = lib.lane_reduce_launch(x.data_ptr(), out.data_ptr(), t, lm, int(reps), _VARIANT_CODE[variant],
+                                         stream)
+    if err != 0:
+        raise RuntimeError(f"{variant} launch failed: {lib.lane_broadcast_error_string(err).decode()} "
+                           f"(cudaError {err})")
+    return out
+
+
 def _check(name: str, x: torch.Tensor, reps: int) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous 2-D f32 tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned (the kernels load 16 bytes a thread)")
     if not 0 <= reps < 2**24:  # i stays exact in f32
         raise ValueError(f"{name}: reps = {reps} out of range")
-
-
-def _raise_on(lib, name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.lane_broadcast_error_string(err).decode()} (cudaError {err})")
 
 
 def lane_broadcast(x: torch.Tensor, v: torch.Tensor, variant: str, reps: int = REPS) -> torch.Tensor:
     """A broadcast variant (or the ``repeat`` tile): ``x [T, LM]`` f32 and
     ``v [T, LM*16]`` bf16 -> ``[T, LM*16]`` f32. On the CPU the plain version;
-    on the card the kernel (``LM`` a multiple of 8, contiguous inputs), else
-    it raises. Adds one to ``lane_broadcast.launches[variant]`` per launch."""
+    on the card the kernel (``LM`` a multiple of 8, contiguous 16-byte aligned
+    inputs), else it raises ``ValueError`` before any launch. Adds one to
+    ``lane_broadcast.launches[variant]`` per launch."""
     if variant not in BROADCAST_VARIANTS:
         raise ValueError(f"unknown broadcast variant {variant!r}; one of {BROADCAST_VARIANTS}")
     if x.device.type == "cpu":
@@ -141,19 +167,12 @@ def lane_broadcast(x: torch.Tensor, v: torch.Tensor, variant: str, reps: int = R
     _check("lane_broadcast", x, reps)
     t, lm = x.shape
     if lm % 8 or v.dtype != torch.bfloat16 or tuple(v.shape) != (t, lm * D) or not v.is_contiguous() \
-            or v.device != x.device or v.data_ptr() % 4:
-        raise ValueError(f"lane_broadcast: needs LM % 8 == 0 and a contiguous, 4-byte aligned bf16 v [T, LM*{D}] "
+            or v.device != x.device or v.data_ptr() % 16:
+        raise ValueError(f"lane_broadcast: needs LM % 8 == 0 and a contiguous, 16-byte aligned bf16 v [T, LM*{D}] "
                          f"on {x.device}, got x {tuple(x.shape)}, v {v.dtype} {tuple(v.shape)} on {v.device}")
-    out = torch.empty((t, lm * D), dtype=torch.float32, device=x.device)
-    if t == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lane_broadcast_launch(x.data_ptr(), v.data_ptr(), out.data_ptr(), t, lm, int(reps),
-                                        _VARIANT_CODE[variant], stream)
-    _raise_on(lib, "lane_broadcast", err)
-    lane_broadcast.launches[variant] += 1
+    out = launch(load_library(), variant, x, v, reps)
+    if t:
+        lane_broadcast.launches[variant] += 1
     return out
 
 
@@ -162,9 +181,9 @@ lane_broadcast.launches = collections.Counter()
 
 def lane_reduce(x: torch.Tensor, variant: str, reps: int = REPS) -> torch.Tensor:
     """A reduce variant: ``x [T, LM*16]`` f32 -> ``[T, LM]`` f32. On the CPU
-    the plain version; on the card the kernel (``LM`` a multiple of 8,
-    contiguous input), else it raises. Adds one to
-    ``lane_reduce.launches[variant]`` per launch."""
+    the plain version; on the card the kernel (``LM`` a multiple of 8, a
+    contiguous 16-byte aligned input), else it raises ``ValueError`` before
+    any launch. Adds one to ``lane_reduce.launches[variant]`` per launch."""
     if variant not in REDUCE_VARIANTS:
         raise ValueError(f"unknown reduce variant {variant!r}; one of {REDUCE_VARIANTS}")
     if x.device.type == "cpu":
@@ -173,16 +192,9 @@ def lane_reduce(x: torch.Tensor, variant: str, reps: int = REPS) -> torch.Tensor
     t, lk = x.shape
     if lk % (8 * D):
         raise ValueError(f"lane_reduce: x must be [T, LM*{D}] with LM % 8 == 0, got {tuple(x.shape)}")
-    out = torch.empty((t, lk // D), dtype=torch.float32, device=x.device)
-    if t == 0:
-        return out
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lane_reduce_launch(x.data_ptr(), out.data_ptr(), t, lk // D, int(reps), _VARIANT_CODE[variant],
-                                     stream)
-    _raise_on(lib, "lane_reduce", err)
-    lane_reduce.launches[variant] += 1
+    out = launch(load_library(), variant, x, None, reps)
+    if t:
+        lane_reduce.launches[variant] += 1
     return out
 
 

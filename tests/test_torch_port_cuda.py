@@ -25,8 +25,8 @@ from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
 from chip_smoke import (
-    RECIPE_GATHER_ATTENTION, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu, gather_inputs, gather_run,
-    gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
+    LANE_STRESS_CASES, RECIPE_GATHER_ATTENTION, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu,
+    gather_inputs, gather_run, gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -356,26 +356,50 @@ def test_train_step_on_card_launches_each_kernel(cuda_device):
     assert any(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
 
 
+# B5: chip_smoke.py's stress cases (rows 1, 17 and 1103, ragged against every task and block; 8, 56 and 64 heads;
+# 0, 1 and 81 repetitions) and a ragged 40 rows at each of those head counts and repetitions
+LANE_CASES = LANE_STRESS_CASES + [(40, lm, reps) for lm in (8, 56, 64) for reps in (0, 1, 81)]
+
+
 @pytest.mark.parametrize("variant", ["matmul", "repeat", "jnp_repeat", "bcast3d", "r_matmul", "r_reshape_sum"])
 def test_lane_kernel_matches_plain_on_card(variant, rng, cuda_device):
-    """B5: each variant's kernel against its plain version at the flagship
-    widths (LM=56, D=16), a ragged T=40 and 81 repetitions; the sums differ
-    only by FMA contraction, the shuffle tree and the tf32 hi/lo split ->
-    atol 1e-5 of max|ref|."""
-    t = 40
-    x = torch.from_numpy(rng.standard_normal((t, lb.LM)).astype(np.float32)).to(cuda_device)
-    v = torch.from_numpy(rng.standard_normal((t, lb.LM * lb.D)).astype(np.float32)).to(cuda_device, torch.bfloat16)
-    dlk = torch.from_numpy(rng.standard_normal((t, lb.LM * lb.D)).astype(np.float32)).to(cuda_device)
-    if variant in lb.BROADCAST_VARIANTS:
-        before = lb.lane_broadcast.launches[variant]
-        out, ref = lb.lane_broadcast(x, v, variant), lb.lane_broadcast_plain(x, v, variant)
-        assert lb.lane_broadcast.launches[variant] == before + 1
-    else:
-        before = lb.lane_reduce.launches[variant]
-        out, ref = lb.lane_reduce(dlk, variant), lb.lane_reduce_plain(dlk, variant)
-        assert lb.lane_reduce.launches[variant] == before + 1
-    torch.cuda.synchronize()
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()))
+    """B5: each variant's kernel against its plain version at each of
+    LANE_CASES, one launch counted a case; the sums differ only by FMA
+    contraction, the order of the head sum and the tf32 hi/lo split -> atol
+    1e-5 of max|ref| (0 at 0 repetitions)."""
+    for t, lm, reps in LANE_CASES:
+        x = torch.from_numpy(rng.standard_normal((t, lm)).astype(np.float32)).to(cuda_device)
+        v = torch.from_numpy(rng.standard_normal((t, lm * lb.D)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+        dlk = torch.from_numpy(rng.standard_normal((t, lm * lb.D)).astype(np.float32)).to(cuda_device)
+        if variant in lb.BROADCAST_VARIANTS:
+            before = lb.lane_broadcast.launches[variant]
+            out, ref = lb.lane_broadcast(x, v, variant, reps), lb.lane_broadcast_plain(x, v, variant, reps)
+            assert lb.lane_broadcast.launches[variant] == before + 1
+        else:
+            before = lb.lane_reduce.launches[variant]
+            out, ref = lb.lane_reduce(dlk, variant, reps), lb.lane_reduce_plain(dlk, variant, reps)
+            assert lb.lane_reduce.launches[variant] == before + 1
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * float(ref.abs().max()),
+                                   msg=lambda m: f"T={t} LM={lm} reps={reps}: {m}")
+
+
+def test_lane_kernel_refuses_misaligned_input_on_card(rng, cuda_device):
+    """B5's kernels load 16 bytes a thread: a contiguous view one element in
+    (2 bytes for v, 4 for the reduce's x) raises ValueError, and nothing is
+    launched."""
+    t, lm = 17, lb.LM
+    x = torch.from_numpy(rng.standard_normal((t, lm)).astype(np.float32)).to(cuda_device)
+    v = torch.zeros(t * lm * lb.D + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(t, lm * lb.D)
+    dlk = torch.zeros(t * lm * lb.D + 1, dtype=torch.float32, device=cuda_device)[1:].view(t, lm * lb.D)
+    before = (dict(lb.lane_broadcast.launches), dict(lb.lane_reduce.launches))
+    for variant in lb.BROADCAST_VARIANTS:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            lb.lane_broadcast(x, v, variant)
+    for variant in lb.REDUCE_VARIANTS:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            lb.lane_reduce(dlk, variant)
+    assert (dict(lb.lane_broadcast.launches), dict(lb.lane_reduce.launches)) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -55,7 +55,7 @@ def test_package_and_chip_smoke_import_no_jax():
                  "data.prefetch", "utils.logger", "utils.profiling", "train.checkpoint", "data.png", "data.trees",
                  "scripts.hard_benchmark", "scripts.stress_ab", "scripts.tune_convergence",
                  "scripts.rehearse_realscale", "scripts.full_scale_run", "scripts.rehearse_day_one", "scripts.bench",
-                 "ops.kernel_flops"):
+                 "ops.kernel_flops", "scripts.lane_vs_source"):
         assert f"mvdetr_tpu_torch.{name}" in report["imported"], name
 
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -126,10 +126,10 @@ def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp
             load.cache_clear()
 
 
-@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd"])
+@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd", "lane_broadcast"])
 def test_backward_kernels_use_no_atomics(name):
-    """B1 and the backward kernels sum each output in one fixed order, so two
-    launches, and two train steps, repeat bitwise: outside comments, their
+    """B1, the backward kernels and B5 sum each output in one fixed order, so
+    two launches, and two train steps, repeat bitwise: outside comments, their
     sources name no atomic operation (CUDA's atomic*() or PTX atom/red)."""
     code = re.sub(r"//[^\n]*", "", (PACKAGE / "csrc" / f"{name}.cu").read_text())
     assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)

@@ -167,3 +167,68 @@ def test_wrappers_dispatch_by_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         exp_vpu_broadcast.main()
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: the wrappers take it for the
+    card's and check it as they would check a card's tensor."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _on_card(a: torch.Tensor) -> torch.Tensor:
+    return a.as_subclass(_OnCard)
+
+
+def _misaligned(shape, dtype) -> torch.Tensor:
+    """A contiguous view one element into its storage: 2 (bf16) or 4 (f32)
+    bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+def test_wrappers_reject_what_the_kernels_cannot_take(monkeypatch):
+    """On a CUDA-bound input the wrappers raise ValueError, before the library
+    is loaded and with no launch counted, for what the kernels cannot take:
+    x or v not 16-byte aligned (the kernels load 16 bytes a thread), LM not a
+    multiple of 8, v of another shape or type, x not contiguous or not 2-D,
+    reps out of range."""
+
+    def no_library():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(lb, "load_library", no_library)
+    t, lk = 17, LM * D
+    x = torch.zeros(t, LM)
+    v = torch.zeros(t, lk, dtype=torch.bfloat16)
+    broadcast_cases = [
+        (x, _misaligned((t, lk), torch.bfloat16), 3, "16-byte aligned bf16 v"),
+        (_misaligned((t, LM), torch.float32), v, 3, "x must be 16-byte aligned"),
+        (torch.zeros(t, 12), torch.zeros(t, 12 * D, dtype=torch.bfloat16), 3, "LM % 8 == 0"),
+        (x, v[:, :-D].contiguous(), 3, "LM % 8 == 0"),
+        (x, v.float(), 3, "bf16 v"),
+        (x, torch.zeros(lk, t, dtype=torch.bfloat16).t(), 3, "contiguous"),
+        (torch.zeros(LM, t).t(), v, 3, "contiguous 2-D f32"),
+        (x.double(), v, 3, "contiguous 2-D f32"),
+        (x, v, -1, "reps = -1 out of range"),
+        (x, v, 2**24, "out of range"),
+    ]
+    reduce_cases = [
+        (_misaligned((t, lk), torch.float32), "x must be 16-byte aligned"),
+        (torch.zeros(t, 12 * D), "LM % 8 == 0"),
+        (torch.zeros(t, lk + 1), "LM % 8 == 0"),
+        (torch.zeros(t, 2, lk // 2), "contiguous 2-D f32"),
+        (torch.zeros(lk, t).t(), "contiguous 2-D f32"),
+    ]
+    before = (dict(lane_broadcast.launches), dict(lane_reduce.launches))
+    for variant in BROADCAST_VARIANTS:
+        for xc, vc, reps, match in broadcast_cases:
+            with pytest.raises(ValueError, match=match):
+                lane_broadcast(_on_card(xc), _on_card(vc), variant, reps)
+    for variant in lb.REDUCE_VARIANTS:
+        for xc, match in reduce_cases:
+            with pytest.raises(ValueError, match=match):
+                lane_reduce(_on_card(xc), variant)
+    assert (dict(lane_broadcast.launches), dict(lane_reduce.launches)) == before
