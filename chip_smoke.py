@@ -58,8 +58,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    pseudo-levels of one point of the bench rig's shadow stack (B=2, C=7,
    60x180, M=8, D=16, R=4; random offsets past the clamp, and the radial
    init of 7 cameras x 8 points shifted by integers; each timed, B2 also by
-   side; untimed at B=1 and B=4) and over the recipe's 32 (B=1, C=4,
-   15x30); B3 at the bench rig's 8-point shadow coordinates (g [14, 86400,
+   side; untimed at B=1 and B=4), over the recipe's 32 (B=1, C=4,
+   15x30), and through the level groups' scalar tail (SHADOW_TAIL_CASES:
+   54 and 1 pseudo-levels, and offsets and weights views that are not
+   16-byte aligned); B3 at the bench rig's 8-point shadow coordinates (g [14, 86400,
    128] -> 60x180) in bf16, timed,
    with its segment statistics, device time by stage and the library call,
    and in f32, and at the recipe rig's in f32; every case against its plain
@@ -384,9 +386,27 @@ def attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=None, init=Non
     return value.cuda().to(torch.bfloat16), torch.from_numpy(off.astype(np.float32)).cuda(), wgt.cuda()
 
 
-def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, init=None):
+def shifted(t, floats: int):
+    """A contiguous copy of ``t`` whose data starts ``floats`` f32 words past
+    a 16-byte boundary: offsets and weights views that are not 16-byte
+    aligned, as a caller's slice of a larger buffer may be."""
+    import torch
+
+    if not floats:
+        return t
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    return buf[floats:floats + t.numel()].view(t.shape).copy_(t)
+
+
+def shift_label(shift) -> str:
+    return f" samples shifted by {shift[0]}/{shift[1]} f32 words" if any(shift) else ""
+
+
+def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, init=None, shift=(0, 0)):
     """B1 vs its plain version on the card at one shape (``c`` cameras,
-    default ``l``); two launches must be bitwise equal. Returns a record."""
+    default ``l``); two launches must be bitwise equal. ``shift``: the
+    offsets' and weights' data start that many f32 words past a 16-byte
+    boundary. Returns a record."""
     import torch
 
     from mvdetr_tpu_torch.ops import kernel_flops as kf
@@ -394,15 +414,19 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
 
     c = l if c is None else c
     v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c, init=init)
+    o, wg = shifted(o, shift[0]), shifted(wg, shift[1])
     out = msda_windowed_fwd(v, o, wg, radius)
     again = msda_windowed_fwd(v, o, wg, radius)
     ref = ms_deform_attn_windowed(v, o, wg, radius, flatten=False)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    plan = _fwd_plan(w, m, d, p, radius, value_align=_value_align(v))  # the plan the wrapper launched
-    print(f"B1 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err={err:.3e} "
-          f"(max |out| {float(ref.abs().max()):.3f}, clamp binds {float((o.abs() > radius).float().mean()):.3f}), "
-          f"bitwise repeat; plan vec={plan.vec} tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads")
+    # the plan the wrapper launched
+    plan = _fwd_plan(w, m, d, p, radius, value_align=_value_align(v),
+                     sample_align=min(_value_align(o), _value_align(wg)))
+    print(f"B1 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius}{shift_label(shift)} "
+          f"max_abs_err={err:.3e} (max |out| {float(ref.abs().max()):.3f}, clamp binds "
+          f"{float((o.abs() > radius).float().mean()):.3f}), bitwise repeat; plan vec={plan.vec} tile "
+          f"{plan.tile_y}x{plan.tile_x}, {plan.threads} threads, body {plan.body}")
     check(bool(torch.isfinite(out).all()), f"B1 {name}: non-finite output")
     check(err <= KERNEL_ATOL, f"B1 {name}: max abs error {err} > {KERNEL_ATOL}")
     check(torch.equal(out, again), f"B1 {name}: two launches differ")
@@ -417,18 +441,22 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
     return rec
 
 
-def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, init=None):
+def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, init=None, shift=(0, 0)):
     """B2 vs the plain backward on the card at one shape (``c`` cameras,
     default ``l``); when ``timed``, the whole launch, its value side and its
     query side are timed, each beside its bound (``timed="query"``: the
-    query side alone). Returns a record."""
+    query side alone). ``shift`` as in :func:`fwd_case` (the offsets' even:
+    the value side copies (x, y) pairs). Returns a record."""
     import torch
 
     from mvdetr_tpu_torch.ops import kernel_flops as kf
-    from mvdetr_tpu_torch.ops.msda_windowed import _query_plan, ms_deform_attn_windowed_bwd, msda_windowed_bwd
+    from mvdetr_tpu_torch.ops.msda_windowed import (
+        _query_plan, _value_plan, ms_deform_attn_windowed_bwd, msda_windowed_bwd,
+    )
 
     c = l if c is None else c
     v, o, wg = attention_inputs(rng, b, l, h, w, m, d, p, radius, integer, c=c, init=init)
+    o, wg = shifted(o, shift[0]), shifted(wg, shift[1])
     g = torch.from_numpy(rng.standard_normal((b, c, h, w, m * d), dtype=np.float32)).cuda()
     out = msda_windowed_bwd(v, o, wg, g, radius)
     again = msda_windowed_bwd(v, o, wg, g, radius)
@@ -447,10 +475,12 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
         nonzero = int((out[1][exact] != 0).sum())
         msg = f", {float(exact.float().mean()):.3f} of offsets exact integers, {nonzero} nonzero cotangents there"
         check(nonzero == 0, f"B2 {name}: integer offsets got nonzero cotangents")
-    plan = _query_plan(v, g, p, radius)  # the plan the wrapper launched the query side with
-    print(f"B2 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius} max_abs_err g_value/g_offsets/g_weights "
-          f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bitwise repeat{msg}; query side plan vec={plan.vec} tile "
-          f"{plan.tile_y}x{plan.tile_x}, {plan.threads} threads")
+    plan = _query_plan(v, o, wg, g, radius)  # the plans the wrapper launched the two sides with
+    levels = _value_plan(h, w, l, p, radius)
+    print(f"B2 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius}{shift_label(shift)} max_abs_err "
+          f"g_value/g_offsets/g_weights {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bitwise repeat{msg}; query side "
+          f"plan vec={plan.vec} tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads, body {plan.body}; value "
+          f"side {levels} planes a block")
     rec = {"err": max(errs)}
     if timed:
         value_flops = kf.msda_bwd_value_flops(wg.numel(), d)
@@ -1086,7 +1116,8 @@ def shadow_kernel_phase(rng, rig) -> dict:
     """B1, B2 and B3 at the shapes of the 8-point shadow path: B1 and B2 over
     the bench rig's 56 pseudo-levels (random offsets past the clamp, and the
     radial init of 7 cameras x 8 points shifted by integers; timed, B2 also
-    by side), untimed at B=1 and B=4, and the recipe's 32, untimed; B3 at
+    by side), untimed at B=1 and B=4, the recipe's 32 and the level groups'
+    scalar tail (SHADOW_TAIL_CASES), untimed; B3 at
     the bench rig's shadow coordinates in bf16 (timed, with its segments, its
     device time by stage and the library call) and in f32, and at the recipe
     rig's in f32.
@@ -1110,6 +1141,12 @@ def shadow_kernel_phase(rng, rig) -> dict:
         label = f"recipe-shadow-{'integer' if integer else 'random'}"
         b1["errs"].append(fwd_case(label, **RECIPE_SHADOW_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
         b2["errs"].append(bwd_case(label, **RECIPE_SHADOW_ATTENTION, integer=integer, rng=rng, timed=False)["err"])
+    # the level groups' scalar tail: L*P not a multiple of 4, and offsets and weights not 16-byte aligned
+    for label, levels, shift in SHADOW_TAIL_CASES:
+        shape = dict(SHADOW_ATTENTION, l=levels, init=None)
+        b1["errs"].append(fwd_case(label, **shape, integer=False, rng=rng, timed=False, shift=shift)["err"])
+        if shift[0] % 2 == 0:
+            b2["errs"].append(bwd_case(label, **shape, integer=False, rng=rng, timed=False, shift=shift)["err"])
     torch.cuda.empty_cache()
 
     c = shadow_warp_inputs(rng, rig)
@@ -1991,6 +2028,12 @@ RECIPE_ATTENTION = dict(b=1, l=4, h=15, w=30, m=8, d=16, p=4, radius=4)
 # (7 cameras x 8 points = 56) and the recipe's (4 x 8 = 32), offsets at integers drawn from the model's radial init
 SHADOW_ATTENTION = dict(b=2, l=56, c=7, h=60, w=180, m=8, d=16, p=1, radius=4, init=(7, 8))
 RECIPE_SHADOW_ATTENTION = dict(b=1, l=32, c=4, h=15, w=30, m=8, d=16, p=1, radius=4, init=(4, 8))
+# the shadow stack through the level groups' scalar tail: (label, pseudo-levels, the offsets' and weights' shift in f32
+# words off a 16-byte boundary): 54 and 1 pseudo-levels (L mod 4 = 2 and 1; at 54 every other (query, head)'s
+# weights are not 16-byte aligned), and 56 with views that are not (B2 only at an even shift of the offsets, whose
+# (x, y) pairs its value side copies as 8 bytes)
+SHADOW_TAIL_CASES = (("shadow-ragged54", 54, (0, 0)), ("shadow-ragged1", 1, (0, 0)),
+                     ("shadow-unaligned", 56, (2, 1)), ("shadow-unaligned-odd", 56, (1, 3)))
 # the warp's forward gathers (the camera warp's and, in warped mode, the shadow warp's): index_select's kernel
 GATHER_LABEL = {"index_select (warp gathers)": ("vectorized_gather_kernel", "indexSelect")}
 # the configurations served and trained at full width: model keywords, the attention mode they resolve, and B1/B2/B3

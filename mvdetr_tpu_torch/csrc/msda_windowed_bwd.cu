@@ -39,8 +39,15 @@
 //   channels of g once into registers and walks the levels in order, with
 //   level l+1's offsets and weights (two and one float4 at P = 4) streaming
 //   into registers while level l gathers. At P = 4 a level's 16 tap loads
-//   are issued before any sum is combined; other P take one sample at a
-//   time. Per sample the thread forms the TPU kernel's dot products first
+//   are issued before any sum is combined. The shadow stack's P = 1
+//   pseudo-levels (ops/msda_warped.py) go in groups of 4 as B1's do: a
+//   group's samples are one level's two and one float4, its 16 tap loads
+//   (each sample on its own plane) go out together, the next group's
+//   samples stream in meanwhile, and its cotangents leave as float4 /
+//   float2; unaligned pointers and the last L mod 4 pseudo-levels take
+//   scalar accesses in the same kernel, and the C cameras' blocks of a tile
+//   run together (B1's block order for this body). Other P take one sample
+//   at a time. Per sample the thread forms the TPU kernel's dot products first
 //   (msda_kernel_bwd.py:117-119): Gab over its channels, one FMA per tap and
 //   channel, in channel order. The D / VEC lanes of the (query, head) then
 //   combine their partial Gab in a fixed order: a shuffle butterfly when
@@ -55,25 +62,28 @@
 //   other P). The block index is decoded once in 32 bits; taps are read
 //   through L1 at 32-bit byte offsets from the query's own cell (the plan
 //   requires 2(R+1)(W+1)K < 2^31).
-// - value side (g_value): one block of kWarps warps per (b, head m, chunk
-//   of 16 channels, value tile of kTileY x kTileX cells, level l), l fastest
-//   so that the L blocks reading the same g run together. A sample of query
+// - value side (g_value): one block per (b, head m, chunk of 16 channels,
+//   value tile of kTileY x kTileX cells, group of G value planes), the
+//   planes fastest so that the blocks reading the same g run together; G
+//   (the plan's `levels`, _value_plan) is 1 at the flagship's P = 4 and 4
+//   over the shadow stack's P = 1, and the block has a group of kWarps warps
+//   for each of its planes, which all share one staging of g. A sample of query
 //   (qy, qx) taps rows y0, y0+1 and columns x0, x0+1 with x0 - qx in [-R, R],
 //   so only the tile's halo, queries with qy in [y_t-R-1, y_t+kTileY-1+R]
 //   (and likewise in x, clipped to the grid), can land on it. For each
 //   camera c in order, the block stages the halo in slabs of query rows with
-//   cp.async into a ring of kStages buffers: each query's P offset pairs and
-//   weights for (m, l) and its 16 channels of g, so each offset is read from
-//   device memory about twice (the halo ratio) instead of once per
-//   candidate cell. The tile's accumulators live in shared memory, start at
+//   cp.async into a ring of stage buffers: each query's 16 channels of g
+//   once and its P offset pairs and weights for (m, l) of each of the G
+//   planes (contiguous in memory), so each offset is read from device memory
+//   about twice (the halo ratio) instead of once per candidate cell. The tile's accumulators live in shared memory, start at
 //   zero and are written to g_value once.
 //
-//   Each warp owns a band of kBandX tile columns, every row of them. It
-//   scans the staged samples whose taps can reach its band, 32 at a time:
-//   each lane turns one sample into a record (tap position, which of the
-//   four taps fall in the band, the four coefficients (w * cy) * cx, with
-//   cy, cx from the clamped offset as above) in the warp's slot of shared
-//   memory, and a ballot collects the samples that land. The warp then takes
+//   Each warp owns a band of kBandX tile columns of its plane, every row of
+//   them. It scans the staged samples whose taps can reach its band, 32 at
+//   a time: each lane turns one sample into a record (tap position, which
+//   of the four taps fall in the band, the four coefficients (w * cy) * cx,
+//   with cy, cx from the clamped offset as above) in the warp's slot of
+//   shared memory, and a ballot collects the samples that land. The warp then takes
 //   those in order, one per step, with lanes as (tap row, channel): lanes
 //   0-15 add to row y0, lanes 16-31 to row y0+1, each into columns x0 and
 //   x0+1 where they are in the band, acc = fma(coef, g, acc). A sample lands
@@ -107,6 +117,15 @@
 // of a cell share no 128-byte line with another query's taps. Evict-first
 // cache hints, the outputs staged in shared memory for full-sector writes,
 // and a register cap for 6 blocks per SM were each slower on the card.
+// Over the shadow stack (B=2, L=56, C=7, P=1; bound 0.601 ms the query
+// side, 0.451 the value side) the query side takes ~3.0 ms (the one-sample
+// loop it replaced ~16.0: its taps, read from 56 planes camera after
+// camera, waited on device memory; the P = 4 body over 14 planes took ~1.8)
+// and the value side ~6.4 (one plane a block ~9.1). There a stage unit of
+// one plane carried one sample a halo query, a 32-sample batch a warp
+// between two barriers: with 4 planes a block and stage buffers of 14 KiB
+// (3 halo rows) a warp scans 3 rows of its plane a unit, at 2 blocks of 16
+// warps an SM (2, 8 planes, 6 or 28 KiB, or 3 buffers: 7.9-9.8 ms).
 // PERF.md has the measurements.
 //
 // Row halo (the BEV-row-sharded path, mvdetr_tpu_torch/ops/msda_sharded.py,
@@ -143,7 +162,8 @@ constexpr int kTileX = 32;                      // tile columns
 constexpr int kBandX = kTileX / kWarps;         // tile columns per warp (a warp owns every row of them)
 constexpr int kAccRow = kTileX * kChunk + 16;   // floats per tile row: the pad puts rows y0, y0+1 on other banks
 constexpr int kStages = 2;                      // stage buffers in the cp.async ring
-constexpr int kStageBytes = 6 * 1024;           // aim for one stage buffer (a slab of halo rows)
+constexpr int kStageBytes = 6 * 1024;           // aim for one stage buffer (a slab of halo rows), one plane a block
+constexpr int kStageBytesLevels = 14 * 1024;    // the same with G > 1 planes a block
 constexpr int kSmemLimit = 232448;              // dynamic shared memory one Hopper block may use
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -246,6 +266,31 @@ __device__ __forceinline__ void load_g(const float* p, float* f) {
   }
 }
 
+// four consecutive floats: one 16-byte access where `vec` (the pointer is
+// 16-byte aligned), else four scalar ones
+__device__ __forceinline__ float4 ld4(const float* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+__device__ __forceinline__ void st4(float* p, float4 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+    p[2] = v.z;
+    p[3] = v.w;
+  }
+}
+__device__ __forceinline__ void st2(float* p, float2 v, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = v;
+  } else {
+    p[0] = v.x;
+    p[1] = v.y;
+  }
+}
+
 // sum_k g[k] * tap[k] over the thread's VEC channels, in channel order
 template <int VEC>
 __device__ __forceinline__ float tap_dot(const float* gv, const typename Raw<VEC>::T& r) {
@@ -290,10 +335,46 @@ __device__ __forceinline__ void combine(float* s, int nchunk, int chunk, float4*
   }
 }
 
-// Query side. PT = 4: P is 4 and offsets, weights, g_off and g_w are
-// 16-byte aligned, so a level's samples of a (query, head) are two and one
-// float4 loads and stores, and its 16 tap loads are issued before any sum is
-// combined; PT = 0: any P, one sample at a time, scalar loads and stores.
+// The query side's and B1's bodies (the plan's `body`): a (query, head)'s
+// L * P samples are contiguous, level-major, so 4 consecutive samples are two
+// float4 of offsets and one of weights. kBodyPoints4: P is 4 and the
+// pointers are 16-byte aligned; a group is one level, whose 4 samples read
+// one value plane. kBodyGroups: P is 1 (the shadow stack's pseudo-levels); a
+// group is 4 consecutive pseudo-levels, each sample on its own plane; a
+// thread whose pointers are not 16-byte aligned makes scalar accesses, and
+// the last L mod 4 samples go one at a time. kBodyGeneric: any P, one sample
+// at a time, scalar loads and stores.
+constexpr int kBodyGeneric = 0, kBodyGroups = 1, kBodyPoints4 = 4;
+
+// The (query tile, camera) of a block of the query side or B1, blockIdx.x =
+// r * M + m. Cameras outside the tile, r = ((b * C + c) * nty + ty) * ntx +
+// tx; or, for the level groups, inside it, r = ((b * nty + ty) * ntx + tx) *
+// C + c: the C cameras' blocks of a tile, which read the same taps of the
+// same L value planes, run together while those planes' rows are in L2 (a
+// shadow stack's value is ~6x the L2).
+template <bool CAMS_INSIDE>
+__device__ __forceinline__ void block_tile(int r, int C, int ntx, int nty, int& tx, int& ty, int& b, int& bc) {
+  if constexpr (CAMS_INSIDE) {
+    const int c = r % C;
+    r /= C;
+    tx = r % ntx;
+    r /= ntx;
+    ty = r % nty;
+    b = r / nty;
+    bc = b * C + c;
+  } else {
+    tx = r % ntx;
+    r /= ntx;
+    ty = r % nty;
+    bc = r / nty;
+    b = bc / C;
+  }
+}
+
+// Query side. PT (the body) kBodyPoints4 or kBodyGroups: a group's 16 tap
+// loads are issued before any sum is combined, the next group's samples are
+// in flight while it gathers, and its cotangents leave as float4 / float2
+// stores; kBodyGeneric: one sample at a time.
 // SHFL: the nchunk = D / VEC lanes of a (query, head) are a power of two <=
 // 32, the block is whole warps, and they combine by shuffles; else through
 // shared memory.
@@ -306,15 +387,9 @@ msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, 
                       float* __restrict__ g_off, float* __restrict__ g_w, int C, int L, int H, int Hv, int row_org,
                       int W, int M, int D, int P, int radius, int tile_y, int tile_x, int ntx, int nty) {
   __shared__ float4 part[SHFL ? 1 : max_threads<VEC>()];
-  // blockIdx.x = ((bc * nty + ty) * ntx + tx) * M + m, bc = b * C + c
-  int r = blockIdx.x;
-  const int m = r % M;
-  r /= M;
-  const int tx = r % ntx;
-  r /= ntx;
-  const int ty = r % nty;
-  const int bc = r / nty;
-  const int b = bc / C;
+  const int m = blockIdx.x % M;
+  int tx, ty, b, bc;
+  block_tile<PT == kBodyGroups>(blockIdx.x / M, C, ntx, nty, tx, ty, b, bc);
 
   const int K = M * D;
   const int nchunk = D / VEC;
@@ -380,7 +455,21 @@ msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, 
     return reinterpret_cast<const char*>(value + ((((long long)b * L + l) * Hv + y + row_org) * W + x) * K +
                                          (long long)m * D + chunk * VEC);
   };
-  if constexpr (PT == 4) {
+  // sample i of plane `own` alone: scalar loads, its combine and scalar stores
+  auto one_sample = [&](const char* own, int i) {
+    const float oxr = __ldg(og + 2 * i), oyr = __ldg(og + 2 * i + 1);
+    float s[4];
+    tap_sums(own, oxr, oyr, s);
+    combine<4, SHFL>(s, nchunk, chunk, part);
+    if (writer) {
+      float cw, cox, coy;
+      cotangents(oxr, oyr, __ldg(wg + i), s, cw, cox, coy);
+      gw[i] = cw;
+      go[2 * i] = cox;
+      go[2 * i + 1] = coy;
+    }
+  };
+  if constexpr (PT == kBodyPoints4) {
     float4 o01 = make_float4(0.f, 0.f, 0.f, 0.f), o23 = o01, w4 = o01;
     if (L > 0) {
       o01 = __ldg(reinterpret_cast<const float4*>(og));
@@ -432,34 +521,81 @@ msda_bwd_query_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, 
       o23 = n23;
       w4 = nw;
     }
+  } else if constexpr (PT == kBodyGroups) {
+    // groups of 4 pseudo-levels, P = 1: sample i reads plane i. The P = 4
+    // body's combine and cotangents again: one code for both took the
+    // flagship's query side from 0.87 to 1.1 ms (PERF.md, B2).
+    const int ngroups = L >> 2;
+    const bool vec = ((reinterpret_cast<size_t>(og) | reinterpret_cast<size_t>(wg) | reinterpret_cast<size_t>(go) |
+                       reinterpret_cast<size_t>(gw)) & 15) == 0;
+    const long long plane = 2LL * Hv * W * K;  // bytes from one value plane to the next
+    float4 o01 = make_float4(0.f, 0.f, 0.f, 0.f), o23 = o01, w4 = o01;
+    if (ngroups > 0) {
+      o01 = ld4(og, vec);
+      o23 = ld4(og + 4, vec);
+      w4 = ld4(wg, vec);
+    }
+    for (int l = 0; l < ngroups; ++l) {
+      float4 n01 = o01, n23 = o23, nw = w4;
+      if (l + 1 < ngroups) {  // group l+1's samples in flight while group l gathers
+        n01 = ld4(og + 8 * (l + 1), vec);
+        n23 = ld4(og + 8 * (l + 1) + 4, vec);
+        nw = ld4(wg + 4 * (l + 1), vec);
+      }
+      const char* own = own_cell(4 * l);
+      float s[16];
+      tap_sums(own, o01.x, o01.y, s);
+      tap_sums(own + plane, o01.z, o01.w, s + 4);
+      tap_sums(own + 2 * plane, o23.x, o23.y, s + 8);
+      tap_sums(own + 3 * plane, o23.z, o23.w, s + 12);
+      combine<16, SHFL>(s, nchunk, chunk, part);
+      if (SHFL && nchunk >= 2) {  // as above
+        const bool hi = chunk & 1;
+        const float4 oo = hi ? o23 : o01;
+        const float wa = hi ? w4.z : w4.x, wb = hi ? w4.w : w4.y;
+        float t[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) t[i] = hi ? s[8 + i] : s[i];
+        float2 cw;
+        float4 co;
+        cotangents(oo.x, oo.y, wa, t, cw.x, co.x, co.y);
+        cotangents(oo.z, oo.w, wb, t + 4, cw.y, co.z, co.w);
+        if (live && chunk < 2) {
+          st4(go + 8 * l + 4 * chunk, co, vec);
+          st2(gw + 4 * l + 2 * chunk, cw, vec);
+        }
+      } else if (writer) {
+        float4 cw, c01, c23;
+        cotangents(o01.x, o01.y, w4.x, s, cw.x, c01.x, c01.y);
+        cotangents(o01.z, o01.w, w4.y, s + 4, cw.y, c01.z, c01.w);
+        cotangents(o23.x, o23.y, w4.z, s + 8, cw.z, c23.x, c23.y);
+        cotangents(o23.z, o23.w, w4.w, s + 12, cw.w, c23.z, c23.w);
+        st4(gw + 4 * l, cw, vec);
+        st4(go + 8 * l, c01, vec);
+        st4(go + 8 * l + 4, c23, vec);
+      }
+      o01 = n01;
+      o23 = n23;
+      w4 = nw;
+    }
+    for (int i = 4 * ngroups; i < L; ++i) one_sample(own_cell(i), i);  // the last L mod 4 pseudo-levels
   } else {
     for (int l = 0; l < L; ++l) {
       const char* own = own_cell(l);
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        const float oxr = __ldg(og + 2 * i), oyr = __ldg(og + 2 * i + 1);
-        float s[4];
-        tap_sums(own, oxr, oyr, s);
-        combine<4, SHFL>(s, nchunk, chunk, part);
-        if (writer) {
-          float cw, cox, coy;
-          cotangents(oxr, oyr, __ldg(wg + i), s, cw, cox, coy);
-          gw[i] = cw;
-          go[2 * i] = cox;
-          go[2 * i + 1] = coy;
-        }
-      }
+      for (int p = 0; p < P; ++p) one_sample(own, l * P + p);
     }
   }
 }
 
-// Value side. Layout of the dynamic shared memory: the tile's accumulators
-// [kTileY][kAccRow]; each warp's records of its current 32 samples; then
-// kStages stage buffers of buf_floats (16-byte aligned), each holding a slab
-// of up to slab_q halo queries: g [slab_q][kChunk], offsets [slab_q * P]
-// (x, y) pairs, weights [slab_q * P].
+// Value side, G value planes (pseudo-levels) per block. Layout of the
+// dynamic shared memory: the tile's accumulators [G][kTileY][kAccRow]; each
+// warp's records of its current 32 samples; then kStages stage buffers of
+// buf_floats (16-byte aligned), each holding a slab of up to slab_q halo
+// queries: g [slab_q][kChunk], offsets [slab_q][G * P] (x, y) pairs, weights
+// [slab_q][G * P] (a query's samples of the G levels, as contiguous as in
+// device memory).
 struct ValueTile {
-  int b, l, m, d0, dn;       // which value plane and channel chunk
+  int b, l, nl, m, d0, dn;   // value planes [l, l + nl) and the channel chunk
   int y_t, x_t;              // the tile's first cell
   int hy0, hy1, hx0, ncols;  // the halo, clipped to the grid (rows inclusive)
   int slab_rows, nslab;
@@ -484,7 +620,8 @@ __device__ __forceinline__ void add_row(float* acc, int4 rec, float gv, int j) {
 
 // Stage unit u = (camera c, slab s) into one buffer with cp.async: one
 // thread per query, 16-byte copies where the layout allows (vec_g: D % 16
-// == 0; vec_ow: P % 4 == 0, with 16-byte aligned bases).
+// == 0; vec_ow: G * P and L * P multiples of 4, with 16-byte aligned bases).
+template <int G>
 __device__ __forceinline__ void stage_unit(const ValueTile& t, int u, float* buf, int slab_q,
                                            const float* __restrict__ offsets, const float* __restrict__ weights,
                                            const float* __restrict__ g, int C, int L, int H, int W, int M, int D,
@@ -495,7 +632,8 @@ __device__ __forceinline__ void stage_unit(const ValueTile& t, int u, float* buf
   const int K = M * D;
   float* gs = buf;
   float* os = buf + slab_q * kChunk;
-  float* ws = os + 2 * slab_q * P;
+  float* ws = os + 2 * slab_q * G * P;
+  const int n = G == 1 ? P : t.nl * P;  // a query's samples of the block's levels
   for (int i = threadIdx.x; i < nq; i += blockDim.x) {
     const int row = div_small(i, t.ncols, inv_ncols);
     const long long q = ((long long)(t.b * C + c) * H + sy0 + row) * W + t.hx0 + i - row * t.ncols;
@@ -506,38 +644,43 @@ __device__ __forceinline__ void stage_unit(const ValueTile& t, int u, float* buf
     } else {
       for (int k = 0; k < t.dn; ++k) cp_async4(gs + i * kChunk + k, gq + k);
     }
-    // the P samples of the query for (m, l): contiguous in offsets and weights
+    // the query's samples for (m, levels l .. l + nl): contiguous in offsets and weights
     const long long s = ((q * M + t.m) * L + t.l) * P;
     if (vec_ow) {
-      for (int k = 0; k < 2 * P; k += 4) cp_async16(os + 2 * i * P + k, offsets + 2 * s + k);
-      for (int k = 0; k < P; k += 4) cp_async16(ws + i * P + k, weights + s + k);
+      for (int k = 0; k < 2 * n; k += 4) cp_async16(os + 2 * i * G * P + k, offsets + 2 * s + k);
+      for (int k = 0; k < n; k += 4) cp_async16(ws + i * G * P + k, weights + s + k);
     } else {
-      for (int k = 0; k < P; ++k) {
-        cp_async8(os + 2 * (i * P + k), offsets + 2 * (s + k));
-        cp_async4(ws + i * P + k, weights + s + k);
+      for (int k = 0; k < n; ++k) {
+        cp_async8(os + 2 * (i * G * P + k), offsets + 2 * (s + k));
+        cp_async4(ws + i * G * P + k, weights + s + k);
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
-msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, P, 2]
-                      const float* __restrict__ weights,  // [B, C, H, W, M, L, P]
-                      const float* __restrict__ g,        // [B, C, H, W, K]
-                      float* __restrict__ g_value,        // [B, L, Hv, W, M, D]
-                      int C, int L, int H, int Hv, int row_org, int W, int M, int D, int P, int radius, int nchunk,
-                      int ntx, int nty, int slab_rows, int slab_q, int buf_floats, bool vec_g, bool vec_ow) {
+// G groups of kWarps warps per block, one a value plane: warp w adds plane
+// w / kWarps's samples on band w % kWarps.
+template <int G>
+__device__ __forceinline__ void value_body(const float* __restrict__ offsets,  // [B, C, H, W, M, L, P, 2]
+                                           const float* __restrict__ weights,  // [B, C, H, W, M, L, P]
+                                           const float* __restrict__ g,        // [B, C, H, W, K]
+                                           float* __restrict__ g_value,        // [B, L, Hv, W, M, D]
+                                           int C, int L, int H, int Hv, int row_org, int W, int M, int D, int P,
+                                           int radius, int nchunk, int ntx, int nty, int nlg, int slab_rows,
+                                           int slab_q, int buf_floats, bool vec_g, bool vec_ow) {
   extern __shared__ __align__(16) float smem[];
-  float* acc = smem;
+  const int lv = G == 1 ? 0 : (threadIdx.x >> 5) / kWarps;  // this warp's plane of the block's G
+  float* acc = smem + lv * (kTileY * kAccRow);
   // this warp's row records: [32 samples][2 tap rows]
-  int4* records = reinterpret_cast<int4*>(smem + kTileY * kAccRow) + 2 * (threadIdx.x & ~31);
-  float* stage = smem + kTileY * kAccRow + kWarps * 32 * kRecordFloats;  // buffer i at stage + i * buf_floats
+  int4* records = reinterpret_cast<int4*>(smem + G * kTileY * kAccRow) + 2 * (threadIdx.x & ~31);
+  float* stage = smem + G * (kTileY * kAccRow + kWarps * 32 * kRecordFloats);  // buffer i at stage + i * buf_floats
 
-  // blockIdx.x = (((b * M + m) * nchunk + ch) * (nty * ntx) + tile) * L + l
+  // blockIdx.x = (((b * M + m) * nchunk + ch) * (nty * ntx) + tile) * nlg + lg: planes [lg * G, +G)
   ValueTile t;
   int r = blockIdx.x;
-  t.l = r % L;
-  r /= L;
+  t.l = (r % nlg) * G;
+  t.nl = min(G, L - t.l);
+  r /= nlg;
   const int tile = r % (nty * ntx);
   r /= nty * ntx;
   const int ch = r % nchunk;
@@ -558,10 +701,10 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
   const int units = C * t.nslab;
   const float inv_p = 1.f / (float)P, inv_ncols = 1.f / (float)t.ncols;
 
-  for (int i = threadIdx.x; i < kTileY * kAccRow; i += blockDim.x) acc[i] = 0.f;
+  for (int i = threadIdx.x; i < G * kTileY * kAccRow; i += blockDim.x) smem[i] = 0.f;
   for (int u = 0; u < kStages - 1; ++u) {
     if (u < units) {
-      stage_unit(t, u, stage + u * buf_floats, slab_q, offsets, weights, g, C, L, H, W, M, D, P, vec_g, vec_ow,
+      stage_unit<G>(t, u, stage + u * buf_floats, slab_q, offsets, weights, g, C, L, H, W, M, D, P, vec_g, vec_ow,
                  inv_ncols);
     }
     cp_async_commit();
@@ -570,11 +713,11 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
   const int lane = threadIdx.x & 31;
   const int half = lane >> 4;  // 0: tap row y0, 1: tap row y0 + 1
   const int j = lane & 15;     // channel d0 + j (lanes past the chunk's dn fill unused slots)
-  const int xb = (threadIdx.x >> 5) * kBandX;  // this warp's band: tile columns [xb, xb + kBandX), every row
+  const int xb = (threadIdx.x >> 5) % kWarps * kBandX;  // this warp's band: tile columns [xb, xb + kBandX), every row
   // halo columns (relative to hx0) of queries whose taps can reach the band
   const int c_lo = max(0, t.x_t + xb - radius - 1 - t.hx0);
   const int c_hi = min(t.ncols - 1, t.x_t + xb + kBandX - 1 + radius - t.hx0);
-  const bool band_live = t.x_t + xb < W && c_lo <= c_hi;
+  const bool band_live = (G == 1 || lv < t.nl) && t.x_t + xb < W && c_lo <= c_hi;
   const int seg = (c_hi - c_lo + 1) * P;  // staged samples of one halo row that the band scans
   const float inv_seg = 1.f / (float)seg;
   const float rad = (float)radius;
@@ -583,14 +726,14 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
     cp_async_wait<kStages - 2>();  // this thread's copies of unit u have landed
     __syncthreads();               // everyone's have, and unit u - 1's buffer is free
     if (u + kStages - 1 < units) {
-      stage_unit(t, u + kStages - 1, stage + (u + kStages - 1) % kStages * buf_floats, slab_q, offsets, weights, g,
+      stage_unit<G>(t, u + kStages - 1, stage + (u + kStages - 1) % kStages * buf_floats, slab_q, offsets, weights, g,
                  C, L, H, W, M, D, P, vec_g, vec_ow, inv_ncols);
     }
     cp_async_commit();
 
     const float* gs = stage + u % kStages * buf_floats;
     const float2* os = reinterpret_cast<const float2*>(gs + slab_q * kChunk);
-    const float* ws = gs + slab_q * (kChunk + 2 * P);
+    const float* ws = gs + slab_q * (kChunk + 2 * G * P);
     const int c = u / t.nslab;
     const int sy0 = t.hy0 + (u - c * t.nslab) * t.slab_rows;
     const int k_end = min(t.slab_rows, t.hy1 - sy0 + 1) * seg;
@@ -603,7 +746,8 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
         const int k = (row * t.ncols + c_lo) * P + e - row * seg;
         const int qi = div_small(k, P, inv_p);
         const int qy = sy0 + row, qx = t.hx0 + qi - row * t.ncols;
-        const float2 o = os[k];
+        const int ks = k + (qi * (G - 1) + lv) * P;  // the staged sample: query qi, plane lv, point k - qi * P
+        const float2 o = os[ks];
         const float ox = fminf(fmaxf(o.x, -rad), rad);
         const float oy = fminf(fmaxf(o.y, -rad), rad);
         const float ix = floorf(ox);
@@ -616,7 +760,7 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
         const bool x_a = tx0 >= xb && tx0 < xb + kBandX, x_b = tx0 >= xb - 1 && tx0 < xb + kBandX - 1;
         taps = (y_a && x_a) | (y_a && x_b) << 1 | (y_b && x_a) << 2 | (y_b && x_b) << 3;
         if (taps) {
-          const float w = ws[k];
+          const float w = ws[ks];
           const float w0 = w * (1.f - fy), w1 = w * fy;
           const int a = ty0 * kAccRow + tx0 * kChunk;
           records[2 * lane] = row_record(a, qi * kChunk, taps & 3, w0, fx);
@@ -649,31 +793,67 @@ msda_bwd_value_kernel(const float* __restrict__ offsets,  // [B, C, H, W, M, L, 
   }
   __syncthreads();
 
-  // each tile cell inside the grid written once
-  for (int i = threadIdx.x; i < kTileY * kTileX * kChunk; i += blockDim.x) {
-    const int jj = i % kChunk, xx = (i / kChunk) % kTileX, yy = i / (kChunk * kTileX);
+  // each tile cell of each plane inside the grid written once
+  for (int i = threadIdx.x; i < G * kTileY * kTileX * kChunk; i += blockDim.x) {
+    const int jj = i % kChunk, xx = (i / kChunk) % kTileX, yy = i / (kChunk * kTileX) % kTileY;
+    const int j = i / (kChunk * kTileX * kTileY);
     const int y = t.y_t + yy, x = t.x_t + xx;
-    if (jj < t.dn && y < Hv && x < W) {
-      g_value[((((long long)t.b * L + t.l) * Hv + y) * W + x) * M * (long long)D + (long long)t.m * D + t.d0 + jj] =
-          acc[yy * kAccRow + xx * kChunk + jj];
+    if ((G == 1 || j < t.nl) && jj < t.dn && y < Hv && x < W) {
+      g_value[((((long long)t.b * L + t.l + j) * Hv + y) * W + x) * M * (long long)D + (long long)t.m * D + t.d0 +
+              jj] = smem[(j * kTileY + yy) * kAccRow + xx * kChunk + jj];
     }
   }
+}
+
+#define VALUE_KERNEL_ARGS                                                                                       \
+  const float *__restrict__ offsets, const float *__restrict__ weights, const float *__restrict__ g,              \
+      float *__restrict__ g_value, int C, int L, int H, int Hv, int row_org, int W, int M, int D, int P, int radius, \
+      int nchunk, int ntx, int nty, int nlg, int slab_rows, int slab_q, int buf_floats, bool vec_g, bool vec_ow
+#define VALUE_BODY_ARGS                                                                                       \
+  offsets, weights, g, g_value, C, L, H, Hv, row_org, W, M, D, P, radius, nchunk, ntx, nty, nlg, slab_rows, slab_q, \
+      buf_floats, vec_g, vec_ow
+
+// One plane a block: 4 warps, 70 registers, 7 blocks an SM (by registers
+// and shared memory).
+__global__ void __launch_bounds__(kWarps * 32) msda_bwd_value_kernel(VALUE_KERNEL_ARGS) {
+  value_body<1>(VALUE_BODY_ARGS);
+}
+// G > 1 planes a block: registers capped so that 8 / G blocks of 4G warps
+// fit an SM.
+template <int G>
+__global__ void __launch_bounds__(kWarps * 32 * G, 8 / G) msda_bwd_value_levels_kernel(VALUE_KERNEL_ARGS) {
+  value_body<G>(VALUE_BODY_ARGS);
 }
 
 using QueryFn = void (*)(const __nv_bfloat16*, const float*, const float*, const float*, float*, float*, int, int,
                         int, int, int, int, int, int, int, int, int, int, int, int);
 
+template <int VEC, bool SHFL>
+QueryFn pick_query(int body) {
+  if (body == kBodyPoints4) return msda_bwd_query_kernel<VEC, kBodyPoints4, SHFL>;
+  if (body == kBodyGroups) return msda_bwd_query_kernel<VEC, kBodyGroups, SHFL>;
+  return msda_bwd_query_kernel<VEC, kBodyGeneric, SHFL>;
+}
 template <int VEC>
-QueryFn pick_query(bool p4, bool shfl) {
-  if (p4) return shfl ? msda_bwd_query_kernel<VEC, 4, true> : msda_bwd_query_kernel<VEC, 4, false>;
-  return shfl ? msda_bwd_query_kernel<VEC, 0, true> : msda_bwd_query_kernel<VEC, 0, false>;
+QueryFn pick_query(int body, bool shfl) {
+  return shfl ? pick_query<VEC, true>(body) : pick_query<VEC, false>(body);
 }
 
-// the query side with the plan of _fwd_plan: VEC channels per thread (8, 4,
-// 2 or 1) and a tile of tile_y x tile_x queries per block
+// whether the query side's body can take P samples a level at these
+// pointers: kBodyPoints4 needs P = 4 and 16-byte aligned samples and
+// cotangents, kBodyGroups P = 1
+bool body_fits(int body, int P, const void* offsets, const void* weights, const void* g_offsets,
+               const void* g_weights) {
+  const size_t align = reinterpret_cast<size_t>(offsets) | reinterpret_cast<size_t>(weights) |
+                       reinterpret_cast<size_t>(g_offsets) | reinterpret_cast<size_t>(g_weights);
+  return body == kBodyGeneric || (body == kBodyGroups && P == 1) || (body == kBodyPoints4 && P == 4 && align % 16 == 0);
+}
+
+// the query side with the plan of _query_plan: VEC channels per thread (8, 4,
+// 2 or 1), a tile of tile_y x tile_x queries per block, and the body
 int launch_query(const void* value, const void* offsets, const void* weights, const void* g, void* g_offsets,
                  void* g_weights, int B, int C, int L, int H, int row_org, int W, int M, int D, int P, int radius,
-                 int vec, int tile_y, int tile_x, cudaStream_t stream) {
+                 int vec, int tile_y, int tile_x, int body, cudaStream_t stream) {
   const long long K = (long long)M * D;
   if (B < 0 || C < 0 || L < 0 || H < 0 || W < 0 || P < 0 || K > 1024 ||
       2LL * (radius + 1LL) * (W + 1LL) * K >= (1LL << 31)) {
@@ -684,22 +864,20 @@ int launch_query(const void* value, const void* offsets, const void* weights, co
   }
   const long long threads = (long long)tile_y * tile_x * (D / vec);
   if (threads > (vec <= 2 ? 1024 : 256)) return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<size_t>(value) % (2 * vec) != 0 || reinterpret_cast<size_t>(g) % std::min(16, 4 * vec) != 0) {
+  if (reinterpret_cast<size_t>(value) % (2 * vec) != 0 || reinterpret_cast<size_t>(g) % std::min(16, 4 * vec) != 0 ||
+      !body_fits(body, P, offsets, weights, g_offsets, g_weights)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long ntx = (W + tile_x - 1) / tile_x, nty = (H + tile_y - 1) / tile_y;
   const long long blocks = (long long)B * C * nty * ntx * M;
   if (blocks == 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const bool p4 = P == 4 && reinterpret_cast<size_t>(offsets) % 16 == 0 &&
-                  reinterpret_cast<size_t>(weights) % 16 == 0 && reinterpret_cast<size_t>(g_offsets) % 16 == 0 &&
-                  reinterpret_cast<size_t>(g_weights) % 16 == 0;
   const int nchunk = D / vec;
   const bool shfl = nchunk <= 32 && (nchunk & (nchunk - 1)) == 0 && threads % 32 == 0;
-  QueryFn fn = vec == 8 ? pick_query<8>(p4, shfl)
-               : vec == 4 ? pick_query<4>(p4, shfl)
-               : vec == 2 ? pick_query<2>(p4, shfl)
-                          : pick_query<1>(p4, shfl);
+  QueryFn fn = vec == 8 ? pick_query<8>(body, shfl)
+               : vec == 4 ? pick_query<4>(body, shfl)
+               : vec == 2 ? pick_query<2>(body, shfl)
+                          : pick_query<1>(body, shfl);
   fn<<<(unsigned)blocks, (unsigned)threads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(offsets),
       static_cast<const float*>(weights), static_cast<const float*>(g), static_cast<float*>(g_offsets),
@@ -708,48 +886,79 @@ int launch_query(const void* value, const void* offsets, const void* weights, co
   return (int)cudaGetLastError();
 }
 
-int launch_value(const void* offsets, const void* weights, const void* g, void* g_value, int B, int C, int L, int H,
-                 int row_org, int W, int M, int D, int P, int radius, cudaStream_t stream) {
+// The value side's shared memory at G planes per block, or -1 past what a
+// block may use; also the slab of halo rows and the stage buffer's floats.
+// ops/msda_windowed.py::_value_stage mirrors it.
+long long value_smem(int G, int H, int W, int P, int radius, long long* slab_rows, long long* slab_q,
+                     long long* buf_floats) {
+  // a slab of halo rows: as many as fit in the stage's bytes, at least one
+  const long long stage_bytes = G == 1 ? kStageBytes : kStageBytesLevels;
+  const long long halo_cols = std::min<long long>(W, kTileX + 2LL * radius + 1);
+  const long long halo_rows = std::min<long long>(H, kTileY + 2LL * radius + 1);
+  const long long q_floats = kChunk + 3LL * P * G;  // a staged query: g, then its G levels' samples
+  *slab_rows = std::max<long long>(1, std::min<long long>(halo_rows, stage_bytes / (halo_cols * q_floats * 4)));
+  *slab_q = *slab_rows * halo_cols;
+  *buf_floats = (*slab_q * q_floats + 3) / 4 * 4;
+  const long long smem =
+      (G * ((long long)kTileY * kAccRow + kWarps * 32 * kRecordFloats) + kStages * *buf_floats) * (long long)4;
+  return smem > kSmemLimit || *slab_q >= (1 << 15) || *slab_q * P * G >= (1 << 24) ? -1 : smem;
+}
+
+template <int G>
+int launch_value_levels(const float* offsets, const float* weights, const float* g, float* g_value, int B, int C,
+                        int L, int H, int row_org, int W, int M, int D, int P, int radius, cudaStream_t stream) {
   const int Hv = H + 2 * row_org;  // the value's rows, each written once
   const int nchunk = (D + kChunk - 1) / kChunk;
   const int ntx = (W + kTileX - 1) / kTileX, nty = (Hv + kTileY - 1) / kTileY;
-  const long long blocks = (long long)B * M * nchunk * nty * ntx * L;
+  const int nlg = (L + G - 1) / G;  // blocks of G planes along L, the last one ragged
+  const long long blocks = (long long)B * M * nchunk * nty * ntx * nlg;
   if (blocks <= 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  // a slab of halo rows: as many as fit in kStageBytes, at least one
-  const long long halo_cols = std::min<long long>(W, kTileX + 2LL * radius + 1);
-  const long long halo_rows = std::min<long long>(H, kTileY + 2LL * radius + 1);
-  const long long q_bytes = (kChunk + 3LL * P) * (long long)sizeof(float);
-  const long long slab_rows = std::max<long long>(1, std::min<long long>(halo_rows, kStageBytes / (halo_cols * q_bytes)));
-  const long long slab_q = slab_rows * halo_cols;
-  const long long buf_floats = (slab_q * (kChunk + 3LL * P) + 3) / 4 * 4;
-  const long long smem =
-      ((long long)kTileY * kAccRow + kWarps * 32 * kRecordFloats + kStages * buf_floats) * (long long)sizeof(float);
-  if (smem > kSmemLimit || slab_q >= (1 << 15) || slab_q * P >= (1 << 24)) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(msda_bwd_value_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  long long slab_rows, slab_q, buf_floats;
+  const long long smem = value_smem(G, H, W, P, radius, &slab_rows, &slab_q, &buf_floats);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  auto* kernel = msda_bwd_value_kernel;
+  if constexpr (G > 1) kernel = msda_bwd_value_levels_kernel<G>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const bool vec_g = D % kChunk == 0 && reinterpret_cast<size_t>(g) % 16 == 0;
-  const bool vec_ow = P % 4 == 0 && reinterpret_cast<size_t>(offsets) % 16 == 0 &&
+  const bool vec_ow = (G * P) % 4 == 0 && (L * P) % 4 == 0 && reinterpret_cast<size_t>(offsets) % 16 == 0 &&
                       reinterpret_cast<size_t>(weights) % 16 == 0;
-  msda_bwd_value_kernel<<<(unsigned)blocks, kWarps * 32, (size_t)smem, stream>>>(
-      static_cast<const float*>(offsets), static_cast<const float*>(weights), static_cast<const float*>(g),
-      static_cast<float*>(g_value), C, L, H, Hv, row_org, W, M, D, P, radius, nchunk, ntx, nty, (int)slab_rows,
+  kernel<<<(unsigned)blocks, kWarps * 32 * G, (size_t)smem, stream>>>(
+      offsets, weights, g, g_value, C, L, H, Hv, row_org, W, M, D, P, radius, nchunk, ntx, nty, nlg, (int)slab_rows,
       (int)slab_q, (int)buf_floats, vec_g, vec_ow);
   return (int)cudaGetLastError();
+}
+
+// the value side with `levels` (1, 2 or 4) value planes per block, the
+// plan of _value_plan
+int launch_value(const void* offsets, const void* weights, const void* g, void* g_value, int B, int C, int L, int H,
+                 int row_org, int W, int M, int D, int P, int radius, int levels, cudaStream_t stream) {
+  const auto* o = static_cast<const float*>(offsets);
+  const auto* w = static_cast<const float*>(weights);
+  const auto* gg = static_cast<const float*>(g);
+  auto* gv = static_cast<float*>(g_value);
+  switch (levels) {
+    case 1: return launch_value_levels<1>(o, w, gg, gv, B, C, L, H, row_org, W, M, D, P, radius, stream);
+    case 2: return launch_value_levels<2>(o, w, gg, gv, B, C, L, H, row_org, W, M, D, P, radius, stream);
+    case 4: return launch_value_levels<4>(o, w, gg, gv, B, C, L, H, row_org, W, M, D, P, radius, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // sides: 1 the query side (g_offsets, g_weights), 2 the value side (g_value),
 // 3 both. row_halo 1: the value (and g_value) has H + 2 * radius rows, the
-// halo's (see above); 0: H rows, zero-padded. vec, tile_y, tile_x: the query
-// side's plan (_fwd_plan), checked again when the query side runs. Returns
+// halo's (see above); 0: H rows, zero-padded. vec, tile_y, tile_x, body: the
+// query side's plan (_query_plan), checked again when the query side runs;
+// levels: the value side's (_value_plan), value planes per block. Returns
 // cudaErrorInvalidValue on a plan or shape the kernels cannot take.
 extern "C" int msda_windowed_bwd_halo_sides_launch(const void* value, const void* offsets, const void* weights,
                                                    const void* g, void* g_value, void* g_offsets, void* g_weights,
                                                    int B, int C, int L, int H, int W, int M, int D, int P, int radius,
-                                                   int row_halo, int vec, int tile_y, int tile_x, int sides,
-                                                   void* stream) {
+                                                   int row_halo, int vec, int tile_y, int tile_x, int body,
+                                                   int levels, int sides, void* stream) {
   (void)cudaGetLastError();  // start from a clean error state: report only this launch
   if (M <= 0 || D <= 0 || radius < 0 || sides < 1 || sides > 3 || (row_halo != 0 && row_halo != 1) ||
       H < 0 || H + 2LL * radius > 0x7fffffffLL) {
@@ -759,11 +968,11 @@ extern "C" int msda_windowed_bwd_halo_sides_launch(const void* value, const void
   const cudaStream_t st = (cudaStream_t)stream;
   if (sides & 1) {
     const int e = launch_query(value, offsets, weights, g, g_offsets, g_weights, B, C, L, H, row_org, W, M, D, P,
-                               radius, vec, tile_y, tile_x, st);
+                               radius, vec, tile_y, tile_x, body, st);
     if (e != 0) return e;
   }
   if (sides & 2) {
-    const int e = launch_value(offsets, weights, g, g_value, B, C, L, H, row_org, W, M, D, P, radius, st);
+    const int e = launch_value(offsets, weights, g, g_value, B, C, L, H, row_org, W, M, D, P, radius, levels, st);
     if (e != 0) return e;
   }
   return (int)cudaGetLastError();
@@ -774,17 +983,17 @@ extern "C" int msda_windowed_bwd_halo_sides_launch(const void* value, const void
 extern "C" int msda_windowed_bwd_sides_launch(const void* value, const void* offsets, const void* weights,
                                               const void* g, void* g_value, void* g_offsets, void* g_weights, int B,
                                               int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
-                                              int tile_y, int tile_x, int sides, void* stream) {
+                                              int tile_y, int tile_x, int body, int levels, int sides, void* stream) {
   return msda_windowed_bwd_halo_sides_launch(value, offsets, weights, g, g_value, g_offsets, g_weights, B, C, L, H, W,
-                                             M, D, P, radius, 0, vec, tile_y, tile_x, sides, stream);
+                                             M, D, P, radius, 0, vec, tile_y, tile_x, body, levels, sides, stream);
 }
 
 extern "C" int msda_windowed_bwd_launch(const void* value, const void* offsets, const void* weights, const void* g,
                                         void* g_value, void* g_offsets, void* g_weights, int B, int C, int L, int H,
                                         int W, int M, int D, int P, int radius, int vec, int tile_y, int tile_x,
-                                        void* stream) {
+                                        int body, int levels, void* stream) {
   return msda_windowed_bwd_sides_launch(value, offsets, weights, g, g_value, g_offsets, g_weights, B, C, L, H, W, M,
-                                        D, P, radius, vec, tile_y, tile_x, 3, stream);
+                                        D, P, radius, vec, tile_y, tile_x, body, levels, 3, stream);
 }
 
 extern "C" const char* msda_windowed_bwd_error_string(int code) {

@@ -44,6 +44,21 @@
 // (a generic loop otherwise). Each thread writes its VEC outputs once. No
 // atomics.
 //
+// The shadow stack (ops/msda_warped.py: L*P pseudo-levels of one point each,
+// 56 at the bench rig's shape) has one sample a level, so the level walk
+// above would fetch a sample's offsets just before its taps, one sample at a
+// time. Its body takes groups of 4 pseudo-levels instead: their samples are
+// the same two float4 of offsets and one of weights as one level of P = 4,
+// streamed one group ahead, and the group's 16 tap loads, each sample on its
+// own plane, go out together. A thread whose offsets or weights are not
+// 16-byte aligned loads them a float at a time, and the last L mod 4
+// pseudo-levels go one at a time, in the same kernel. For this body the C
+// cameras' blocks of a query tile run together (cameras inside the tile in
+// the block order): they tap the same cells of the same planes, and the
+// stack's value (310 MB there) is ~6x the L2, so with the cameras outermost
+// each camera read it again from device memory. The sum stays in (l, p)
+// order, so both bodies and both orders give the generic loop's bits.
+//
 // What holds it, on an H100 80GB HBM3 at 700 W (PERF.md, measured with
 // mvdetr_tpu_torch/scripts/msda_vs_source.py): ~0.68 ms at the flagship
 // shape, ~4.4x the bound, against ~2.13 ms for the one thread per channel
@@ -57,7 +72,11 @@
 // so a tile of twice the queries shares more lines. Staging the tile's
 // value halo, or its offsets, in shared memory with cp.async, and one
 // thread per head (two 16-byte loads a tap) were each slower on the card,
-// at R = 4 and R = 16.
+// at R = 4 and R = 16. Over the shadow stack (B=2, L=56, C=7, P=1): ~1.84
+// ms against a 0.358 ms bound, where the one-sample loop took ~2.87 in the
+// same call. Its taps hold it (that loop took 0.89 ms without tap loads);
+// putting the cameras inside the tile took the groups from 2.70 to 1.86 ms,
+// and a register cap for 3 or 4 blocks of 128 threads an SM was no faster.
 //
 // Row halo (the BEV-row-sharded path, mvdetr_tpu_torch/ops/msda_sharded.py,
 // as the TPU kernel's row_halo mode): the value holds Hv = H + 2R rows for the
@@ -124,9 +143,49 @@ __device__ __forceinline__ typename Raw<VEC>::T ldg_or_zero(const __nv_bfloat16*
   return r;
 }
 
-// PT = 4: P is 4 and the offsets and weights are 16-byte aligned, so a
-// level's samples of a (query, head) are two and one float4 loads; PT = 0:
-// any P, scalar loads.
+// four consecutive floats: one 16-byte load where `vec` (the pointer is
+// 16-byte aligned), else four scalar ones
+__device__ __forceinline__ float4 ld4(const float* p, bool vec) {
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+// The bodies (the plan's `body`). A (query, head)'s L * P samples are
+// contiguous, level-major, so 4 consecutive samples are two float4 of
+// offsets and one of weights, and the next 4 stream in while these gather.
+// kBodyPoints4: P is 4 and the offsets and weights are 16-byte aligned; a
+// group is one level, whose 4 samples read one value plane. kBodyGroups: P
+// is 1 (the shadow stack's pseudo-levels); a group is 4 consecutive
+// pseudo-levels, each sample on its own plane; a thread whose pointers are
+// not 16-byte aligned loads them one float at a time, and the last L mod 4
+// samples go one at a time. kBodyGeneric: any P, one sample at a time.
+constexpr int kBodyGeneric = 0, kBodyGroups = 1, kBodyPoints4 = 4;
+
+// The (query tile, camera) of a block, blockIdx.x = r * M + m. Cameras
+// outside the tile, r = ((b * C + c) * nty + ty) * ntx + tx; or, for the
+// level groups, inside it, r = ((b * nty + ty) * ntx + tx) * C + c: the C
+// cameras' blocks of a tile, which read the same taps of the same L value
+// planes, run together while those planes' rows are in L2 (a shadow stack's
+// value is ~6x the L2).
+template <bool CAMS_INSIDE>
+__device__ __forceinline__ void block_tile(int r, int C, int ntx, int nty, int& tx, int& ty, int& b, int& bc) {
+  if constexpr (CAMS_INSIDE) {
+    const int c = r % C;
+    r /= C;
+    tx = r % ntx;
+    r /= ntx;
+    ty = r % nty;
+    b = r / nty;
+    bc = b * C + c;
+  } else {
+    tx = r % ntx;
+    r /= ntx;
+    ty = r % nty;
+    bc = r / nty;
+    b = bc / C;
+  }
+}
+
 template <int VEC, int PT>
 __global__ void __launch_bounds__(max_threads<VEC>())
 msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, W, K]
@@ -135,15 +194,9 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
                          float* __restrict__ out,                  // [B, C, H, W, K]
                          int C, int L, int H, int Hv, int row_org, int W, int M, int D, int P, int radius,
                          int tile_y, int tile_x, int ntx, int nty) {
-  // blockIdx.x = ((bc * nty + ty) * ntx + tx) * M + m, bc = b * C + c
-  int r = blockIdx.x;
-  const int m = r % M;
-  r /= M;
-  const int tx = r % ntx;
-  r /= ntx;
-  const int ty = r % nty;
-  const int bc = r / nty;
-  const int b = bc / C;
+  const int m = blockIdx.x % M;
+  int tx, ty, b, bc;
+  block_tile<PT == kBodyGroups>(blockIdx.x / M, C, ntx, nty, tx, ty, b, bc);
 
   const int K = M * D;
   const int nchunk = D / VEC;
@@ -196,28 +249,37 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
   auto own_cell = [&](int l) {
     return value + ((((long long)b * L + l) * Hv + y + row_org) * W + x) * K + (long long)m * D + chunk * VEC;
   };
-  if constexpr (PT == 4) {
+  if constexpr (PT == kBodyPoints4 || PT == kBodyGroups) {
+    // groups of 4 samples: a level (kBodyPoints4), or 4 pseudo-levels (kBodyGroups)
+    const int ngroups = PT == kBodyPoints4 ? L : L >> 2;
+    const bool vec = PT == kBodyPoints4 || ((reinterpret_cast<size_t>(og) | reinterpret_cast<size_t>(wg)) & 15) == 0;
+    const long long plane = PT == kBodyGroups ? (long long)Hv * W * K : 0;  // from one value plane to the next
     float4 o01 = make_float4(0.f, 0.f, 0.f, 0.f), o23 = o01, w4 = o01;
-    if (L > 0) {
-      o01 = __ldg(reinterpret_cast<const float4*>(og));
-      o23 = __ldg(reinterpret_cast<const float4*>(og + 4));
-      w4 = __ldg(reinterpret_cast<const float4*>(wg));
+    if (ngroups > 0) {
+      o01 = ld4(og, vec);
+      o23 = ld4(og + 4, vec);
+      w4 = ld4(wg, vec);
     }
-    for (int l = 0; l < L; ++l) {
+    for (int l = 0; l < ngroups; ++l) {
       float4 n01 = o01, n23 = o23, nw = w4;
-      if (l + 1 < L) {  // level l+1's samples in flight while level l gathers
-        n01 = __ldg(reinterpret_cast<const float4*>(og + 8 * (l + 1)));
-        n23 = __ldg(reinterpret_cast<const float4*>(og + 8 * (l + 1) + 4));
-        nw = __ldg(reinterpret_cast<const float4*>(wg + 4 * (l + 1)));
+      if (l + 1 < ngroups) {  // group l+1's samples in flight while group l gathers
+        n01 = ld4(og + 8 * (l + 1), vec);
+        n23 = ld4(og + 8 * (l + 1) + 4, vec);
+        nw = ld4(wg + 4 * (l + 1), vec);
       }
-      const __nv_bfloat16* own = own_cell(l);
+      const __nv_bfloat16* own = own_cell(PT == kBodyPoints4 ? l : 4 * l);
       sample(own, o01.x, o01.y, w4.x);
-      sample(own, o01.z, o01.w, w4.y);
-      sample(own, o23.x, o23.y, w4.z);
-      sample(own, o23.z, o23.w, w4.w);
+      sample(own + plane, o01.z, o01.w, w4.y);
+      sample(own + 2 * plane, o23.x, o23.y, w4.z);
+      sample(own + 3 * plane, o23.z, o23.w, w4.w);
       o01 = n01;
       o23 = n23;
       w4 = nw;
+    }
+    if constexpr (PT == kBodyGroups) {
+      for (int i = 4 * ngroups; i < L; ++i) {  // the last L mod 4 pseudo-levels
+        sample(own_cell(i), __ldg(og + 2 * i), __ldg(og + 2 * i + 1), __ldg(wg + i));
+      }
     }
   } else {
     for (int l = 0; l < L; ++l) {
@@ -245,25 +307,35 @@ msda_windowed_fwd_kernel(const __nv_bfloat16* __restrict__ value,  // [B, L, H, 
 using KernelFn = void (*)(const __nv_bfloat16*, const float*, const float*, float*, int, int, int, int, int, int,
                           int, int, int, int, int, int, int, int);
 
-KernelFn pick_kernel(int vec, bool p4) {
+template <int VEC>
+KernelFn pick_body(int body) {
+  if (body == kBodyPoints4) return msda_windowed_fwd_kernel<VEC, kBodyPoints4>;
+  if (body == kBodyGroups) return msda_windowed_fwd_kernel<VEC, kBodyGroups>;
+  return msda_windowed_fwd_kernel<VEC, kBodyGeneric>;
+}
+
+KernelFn pick_kernel(int vec, int body) {
   switch (vec) {
-    case 8: return p4 ? msda_windowed_fwd_kernel<8, 4> : msda_windowed_fwd_kernel<8, 0>;
-    case 4: return p4 ? msda_windowed_fwd_kernel<4, 4> : msda_windowed_fwd_kernel<4, 0>;
-    case 2: return p4 ? msda_windowed_fwd_kernel<2, 4> : msda_windowed_fwd_kernel<2, 0>;
-    default: return p4 ? msda_windowed_fwd_kernel<1, 4> : msda_windowed_fwd_kernel<1, 0>;
+    case 8: return pick_body<8>(body);
+    case 4: return pick_body<4>(body);
+    case 2: return pick_body<2>(body);
+    default: return pick_body<1>(body);
   }
 }
 
 }  // namespace
 
 // Launch with the plan of _fwd_plan (ops/msda_windowed.py): VEC channels
-// per thread (8, 4, 2 or 1) and a tile of tile_y x tile_x queries per block.
+// per thread (8, 4, 2 or 1), a tile of tile_y x tile_x queries per block, and
+// the body (kBodyPoints4 needs P = 4 and 16-byte aligned offsets and
+// weights, kBodyGroups P = 1).
 // row_halo 1: the value has H + 2 * radius rows, the halo's (see above); 0:
 // H rows, zero-padded. Returns cudaErrorInvalidValue on a plan or shape the
 // kernel cannot take.
 extern "C" int msda_windowed_fwd_halo_launch(const void* value, const void* offsets, const void* weights, void* out,
                                              int B, int C, int L, int H, int W, int M, int D, int P, int radius,
-                                             int row_halo, int vec, int tile_y, int tile_x, void* stream) {
+                                             int row_halo, int vec, int tile_y, int tile_x, int body,
+                                             void* stream) {
   (void)cudaGetLastError();  // start from a clean error state: report only this launch
   const long long K = (long long)M * D;
   if (B < 0 || C < 0 || L < 0 || H < 0 || W < 0 || M <= 0 || D <= 0 || P < 0 || radius < 0 || K > 1024 ||
@@ -282,12 +354,15 @@ extern "C" int msda_windowed_fwd_halo_launch(const void* value, const void* offs
       reinterpret_cast<size_t>(out) % (vec == 1 ? 4 : vec == 2 ? 8 : 16) != 0) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool aligned = (reinterpret_cast<size_t>(offsets) | reinterpret_cast<size_t>(weights)) % 16 == 0;
+  if (!(body == kBodyGeneric || (body == kBodyGroups && P == 1) || (body == kBodyPoints4 && P == 4 && aligned))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const long long ntx = (W + tile_x - 1) / tile_x, nty = (H + tile_y - 1) / tile_y;
   const long long blocks = (long long)B * C * nty * ntx * M;
   if (blocks == 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const bool p4 = P == 4 && reinterpret_cast<size_t>(offsets) % 16 == 0 && reinterpret_cast<size_t>(weights) % 16 == 0;
-  pick_kernel(vec, p4)<<<(unsigned)blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(
+  pick_kernel(vec, body)<<<(unsigned)blocks, (unsigned)threads, 0, (cudaStream_t)stream>>>(
       static_cast<const __nv_bfloat16*>(value), static_cast<const float*>(offsets),
       static_cast<const float*>(weights), static_cast<float*>(out), C, L, H, Hv, row_org, W, M, D, P, radius, tile_y,
       tile_x, (int)ntx, (int)nty);
@@ -298,9 +373,9 @@ extern "C" int msda_windowed_fwd_halo_launch(const void* value, const void* offs
 // earlier revisions of this source export (scripts/msda_vs_source.py).
 extern "C" int msda_windowed_fwd_launch(const void* value, const void* offsets, const void* weights, void* out,
                                         int B, int C, int L, int H, int W, int M, int D, int P, int radius, int vec,
-                                        int tile_y, int tile_x, void* stream) {
+                                        int tile_y, int tile_x, int body, void* stream) {
   return msda_windowed_fwd_halo_launch(value, offsets, weights, out, B, C, L, H, W, M, D, P, radius, 0, vec, tile_y,
-                                       tile_x, stream);
+                                       tile_x, body, stream);
 }
 
 extern "C" const char* msda_windowed_fwd_error_string(int code) {

@@ -210,15 +210,30 @@ def ms_deform_attn_windowed_bwd(
     return g_value, g_off, g_wgt
 
 
+# The kernels' bodies (csrc/msda_windowed_{fwd,bwd}.cu): a (query, head)'s
+# L*P samples are contiguous, so 4 consecutive samples are two 16-byte loads
+# of offsets and one of weights. BODY_POINTS4: a level of P = 4 points on one
+# value plane, 16-byte aligned; BODY_GROUPS: 4 pseudo-levels of P = 1 point,
+# each on its own plane (the shadow stack), with a scalar tail for L mod 4
+# and for unaligned pointers; BODY_GENERIC: one sample at a time, any P.
+BODY_GENERIC, BODY_GROUPS, BODY_POINTS4 = 0, 1, 4
+# B2's value side: value planes per block it is built for, and the dynamic
+# shared memory one Hopper block may use
+VALUE_LEVELS = (1, 2, 4)
+SMEM_LIMIT = 232448
+
+
 class FwdPlan(NamedTuple):
-    """How B1 tiles one launch: ``vec`` channels per thread (one load of
-    ``2 * vec`` bytes per tap), ``tile_y x tile_x`` queries of one head per
-    block, ``threads`` per block."""
+    """How B1 (and B2's query side) tiles one launch: ``vec`` channels per
+    thread (one load of ``2 * vec`` bytes per tap), ``tile_y x tile_x``
+    queries of one head per block, ``threads`` per block, and the ``body``
+    that walks a (query, head)'s samples (``BODY_*``)."""
 
     vec: int
     tile_y: int
     tile_x: int
     threads: int
+    body: int
 
 
 def _check_sizes(name: str, m: int, d: int, radius) -> None:
@@ -230,18 +245,22 @@ def _check_sizes(name: str, m: int, d: int, radius) -> None:
         raise ValueError(f"{name}: radius must be a non-negative integer, got {radius}")
 
 
-def _fwd_plan(w: int, m: int, d: int, p: int, radius: int, value_align: int = 16) -> FwdPlan:
+def _fwd_plan(w: int, m: int, d: int, p: int, radius: int, value_align: int = 16,
+              sample_align: int = 16) -> FwdPlan:
     """B1's tiling for a grid ``w`` cells wide, head width ``d`` (``m``
     heads), ``p`` points and ``radius``, with the value's data pointer
-    aligned to ``value_align`` bytes; raises ``ValueError`` on what the
-    kernel cannot take. The only planning rule: the wrapper passes its
-    result to the launcher, which checks it again.
+    aligned to ``value_align`` bytes and the offsets' and weights' to
+    ``sample_align``; raises ``ValueError`` on what the kernel cannot take.
+    The only planning rule: the wrapper passes its result to the launcher,
+    which checks it again.
 
     The widest ``vec`` of 8, 4, 2, 1 that divides ``d`` and the alignment,
     and a tile 16 queries wide of about 128 threads, or 256 from R=8 on,
     where the taps of a larger tile share more L1 lines (PERF.md, B1).
-    Every tile gives the same bits. The kernels address a tap by a 32-bit
-    offset from the query's own cell (B2's query side in bytes), so
+    The body: ``BODY_POINTS4`` at P = 4 with 16-byte aligned samples,
+    ``BODY_GROUPS`` at P = 1, else ``BODY_GENERIC``. Every tile and body
+    gives the same bits. The kernels address a tap by a 32-bit offset from
+    the query's own cell (B2's query side in bytes), so
     ``2 * (R + 1) * (W + 1) * M * D < 2^31``."""
     _check_sizes("msda_windowed_fwd", m, d, radius)
     if p < 0:
@@ -254,24 +273,78 @@ def _fwd_plan(w: int, m: int, d: int, p: int, radius: int, value_align: int = 16
     q = max(1, (256 if radius >= 8 else 128) // nchunk)
     tile_x = min(16, q)
     tile_y = q // tile_x
-    return FwdPlan(vec, tile_y, tile_x, tile_y * tile_x * nchunk)
+    if p == 4 and sample_align % 16 == 0:
+        body = BODY_POINTS4
+    else:
+        body = BODY_GROUPS if p == 1 else BODY_GENERIC
+    return FwdPlan(vec, tile_y, tile_x, tile_y * tile_x * nchunk, body)
 
 
-def _query_plan(value: torch.Tensor, g: torch.Tensor, p: int, radius: int) -> FwdPlan:
+def _query_plan(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor, g: torch.Tensor,
+                radius: int) -> FwdPlan:
     """The plan of B2's query side, whose taps are B1's taps: :func:`_fwd_plan`
     at the alignment that both the value's taps and ``g``'s loads allow (``vec``
-    f32 channels of g take twice the bytes of ``vec`` bf16 taps)."""
+    f32 channels of g take twice the bytes of ``vec`` bf16 taps), and at the
+    offsets' and weights' alignment (the cotangents it writes are new
+    tensors, aligned)."""
     _, _, _, w, m, d = value.shape
-    return _fwd_plan(w, m, d, p, radius, value_align=min(_value_align(value), _value_align(g) // 2))
+    return _fwd_plan(w, m, d, offsets.shape[6], radius, value_align=min(_value_align(value), _value_align(g) // 2),
+                     sample_align=min(_value_align(offsets), _value_align(weights)))
+
+
+def _value_stage(levels: int, h: int, w: int, p: int, radius: int) -> tuple[int, int]:
+    """``(dynamic shared memory bytes, halo queries a stage buffer holds)`` of
+    B2's value side at ``levels`` value planes per block, as
+    ``csrc/msda_windowed_bwd.cu::value_smem`` reckons them: per plane the
+    tile's 8 x (32 * 16 + 16) f32 accumulators and 4 warps' records of 32
+    samples (2 x 16 bytes each); two stage buffers, each a slab of as many
+    halo rows as fit 6 KiB (14 KiB with more than one plane; at least one
+    row), a halo query taking its 16 channels of g and its ``levels * p``
+    samples (3 floats each)."""
+    halo_cols, halo_rows = min(w, 32 + 2 * radius + 1), min(h, 8 + 2 * radius + 1)
+    q_floats = 16 + 3 * p * levels
+    stage_bytes = (6 if levels == 1 else 14) * 1024
+    slab_rows = max(1, min(halo_rows, stage_bytes // (halo_cols * q_floats * 4)))
+    buf_floats = (slab_rows * halo_cols * q_floats + 3) // 4 * 4
+    return 4 * (levels * (8 * (32 * 16 + 16) + 4 * 32 * 8) + 2 * buf_floats), slab_rows * halo_cols
+
+
+def _value_plan(h: int, w: int, l: int, p: int, radius: int) -> int:
+    """Value planes per block of B2's value side (one of ``VALUE_LEVELS``)
+    for ``l`` levels of ``p`` points on an ``h x w`` query grid; raises
+    ``ValueError`` on what the kernel cannot take.
+
+    A block stages each halo query's 16 channels of g once for all of its
+    planes, beside ``3 * p`` floats of samples a plane. At P = 4 (the
+    flagship) g is 16 of a query's 28 floats and one plane a block keeps 7
+    blocks of 4 warps on an SM; at P = 1 (the shadow stack) g is 16 of 19,
+    staged L times a tile, so a block takes the fewest planes whose samples
+    make up P = 4's, at most ``l`` and within the shared memory a block may
+    use. Every count gives the same bits."""
+    if radius < 0 or p < 0:
+        raise ValueError(f"msda_windowed_bwd: radius {radius} and P = {p} must be non-negative")
+
+    def fits(levels):
+        smem, slab_q = _value_stage(levels, h, w, p, radius)
+        return smem <= SMEM_LIMIT and slab_q < 2**15 and slab_q * p * levels < 2**24
+
+    want = max(1, min(l, -(-4 // max(p, 1))))  # the fewest planes whose samples make up P = 4's, at most l
+    levels = max(v for v in VALUE_LEVELS if v <= want)
+    while levels > 1 and not fits(levels):
+        levels = max(v for v in VALUE_LEVELS if v < levels)
+    if not fits(levels):
+        raise ValueError(f"msda_windowed_bwd: the value side's halo at radius {radius} on a grid {w} wide does not "
+                         f"fit a block's shared memory")
+    return levels
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's shared library."""
     lib = ctypes.CDLL(str(kernel_build.build(KERNEL_NAME)))
-    lib.msda_windowed_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.msda_windowed_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     lib.msda_windowed_fwd_launch.restype = ctypes.c_int
-    lib.msda_windowed_fwd_halo_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.msda_windowed_fwd_halo_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     lib.msda_windowed_fwd_halo_launch.restype = ctypes.c_int
     lib.msda_windowed_fwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_fwd_error_string.restype = ctypes.c_char_p
@@ -320,7 +393,8 @@ def msda_windowed_fwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     path. Adds one to ``msda_windowed_fwd.launches`` per launch, and to
     ``msda_windowed_fwd.row_halo_launches`` per launch with ``row_halo``."""
     b, c, l, h, w, m, d, p = _check_kernel_inputs("msda_windowed_fwd", value, offsets, weights, radius, row_halo)
-    plan = _fwd_plan(w, m, d, p, int(radius), value_align=_value_align(value))
+    plan = _fwd_plan(w, m, d, p, int(radius), value_align=_value_align(value),
+                     sample_align=min(_value_align(offsets), _value_align(weights)))
     out = torch.empty((b, c, h, w, m * d), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
         return out
@@ -329,7 +403,7 @@ def msda_windowed_fwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = lib.msda_windowed_fwd_halo_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, stream,
+            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, plan.body, stream,
         )
     if err != 0:
         msg = lib.msda_windowed_fwd_error_string(err).decode()
@@ -347,11 +421,11 @@ msda_windowed_fwd.row_halo_launches = 0
 def load_bwd_library() -> ctypes.CDLL:
     """Build (at first use) and load the backward kernel's shared library."""
     lib = ctypes.CDLL(str(kernel_build.build(BWD_KERNEL_NAME)))
-    lib.msda_windowed_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_launch.restype = ctypes.c_int
-    lib.msda_windowed_bwd_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_sides_launch.restype = ctypes.c_int
-    lib.msda_windowed_bwd_halo_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    lib.msda_windowed_bwd_halo_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_halo_sides_launch.restype = ctypes.c_int
     lib.msda_windowed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_bwd_error_string.restype = ctypes.c_char_p
@@ -368,7 +442,8 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     all contiguous on one CUDA device -> f32 ``(g_value, g_offsets,
     g_weights)`` shaped as the inputs (``g_value`` over the ``H + 2R`` rows
     of the value with ``row_halo``). The query side (``g_offsets``,
-    ``g_weights``) is tiled by :func:`_query_plan`.
+    ``g_weights``) is tiled by :func:`_query_plan`, the value side
+    (``g_value``) by :func:`_value_plan`.
 
     ``side`` ``"value"`` or ``"query"`` runs only the kernel of ``g_value`` or
     of ``(g_offsets, g_weights)`` (to time each); the other outputs are then
@@ -387,7 +462,8 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
                          f"{(b, c, h, w, m * d)}")
     if offsets.data_ptr() % 8:
         raise ValueError("msda_windowed_bwd: offsets must be 8-byte aligned (the kernel reads (x, y) pairs)")
-    plan = _query_plan(value, g, p, int(radius))
+    plan = _query_plan(value, offsets, weights, g, int(radius))
+    levels = _value_plan(h, w, l, p, int(radius))
     g_value = torch.empty(value.shape, dtype=torch.float32, device=value.device)
     g_off = torch.empty(offsets.shape, dtype=torch.float32, device=value.device)
     g_wgt = torch.empty(weights.shape, dtype=torch.float32, device=value.device)
@@ -399,8 +475,8 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
         err = lib.msda_windowed_bwd_halo_sides_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), g.data_ptr(),
             g_value.data_ptr(), g_off.data_ptr(), g_wgt.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, _BWD_SIDES[side],
-            stream,
+            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, plan.body, levels,
+            _BWD_SIDES[side], stream,
         )
     if err != 0:
         msg = lib.msda_windowed_bwd_error_string(err).decode()

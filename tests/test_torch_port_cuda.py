@@ -25,7 +25,7 @@ from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
 from chip_smoke import (
-    LANE_STRESS_CASES, RECIPE_GATHER_ATTENTION, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu,
+    LANE_STRESS_CASES, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu,
     gather_inputs, gather_run, gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
 )
 
@@ -68,17 +68,17 @@ def test_kernel_matches_plain_on_card(radius, m, d, integer, c, hw, rng, cuda_de
     ref = ms_deform_attn_windowed(v, o, w, radius, flatten=False)
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
     assert torch.equal(out, again)
-    vec = _fwd_plan(wd, m, d, p, radius, value_align=_value_align(v)).vec
+    plan = _fwd_plan(wd, m, d, p, radius, value_align=_value_align(v))
 
     def launch(tile_y, tile_x):
         res = torch.empty_like(out)
         err = load_library().msda_windowed_fwd_launch(
-            v.data_ptr(), o.data_ptr(), w.data_ptr(), res.data_ptr(), 2, c, l, h, wd, m, d, p, radius, vec, tile_y,
-            tile_x, torch.cuda.current_stream().cuda_stream)
+            v.data_ptr(), o.data_ptr(), w.data_ptr(), res.data_ptr(), 2, c, l, h, wd, m, d, p, radius, plan.vec,
+            tile_y, tile_x, plan.body, torch.cuda.current_stream().cuda_stream)
         return err, res
 
     for tile in ((8, 16), (3, 5), (1, 1), (2, 7)):
-        if tile[0] * tile[1] * (d // vec) > (1024 if vec <= 2 else 256):
+        if tile[0] * tile[1] * (d // plan.vec) > (1024 if plan.vec <= 2 else 256):
             assert launch(*tile)[0] == 1  # cudaErrorInvalidValue: more threads than the block takes
             continue
         err, res = launch(*tile)
@@ -171,19 +171,29 @@ def test_warp_bwd_stress_cases_on_card(name, cuda_device):
         assert not warp_bwd(case["g"], case["sx"], case["sy"], case["h"], case["w"]).any()
 
 
-@pytest.mark.parametrize("integer", [False, True])
-def test_kernels_over_the_shadow_stack_on_card(integer, cuda_device):
+@pytest.mark.parametrize("integer,tail", [pytest.param(False, None, id="False"), pytest.param(True, None, id="True")]
+                         + [pytest.param(False, case, id=case[0]) for case in SHADOW_TAIL_CASES])
+def test_kernels_over_the_shadow_stack_on_card(integer, tail, cuda_device):
     """B1 and B2 through ``chip_smoke.fwd_case``/``bwd_case`` over the 56
     pseudo-levels of one point of a 7-camera, 8-point shadow stack on a 9x21
-    grid (the generic point loop): within their bounds of the plain versions,
-    two launches bitwise equal; offsets at integers, drawn from the radial
-    init of 7 cameras x 8 points, get exactly zero cotangents."""
+    grid (the level groups): within their bounds of the plain versions, two
+    launches bitwise equal; offsets at integers, drawn from the radial init
+    of 7 cameras x 8 points, get exactly zero cotangents. ``tail``: a case
+    of ``chip_smoke.SHADOW_TAIL_CASES``, the groups' scalar tail (54 and 1
+    pseudo-levels, offsets and weights views that are not 16-byte aligned;
+    B2 only where the offsets' pairs stay 8-byte aligned)."""
     shape = dict(b=2, l=56, c=7, h=9, w=21, m=8, d=16, p=1, radius=4, init=(7, 8))
+    shift = (0, 0)
+    if tail is not None:
+        shape.update(l=tail[1], init=None)
+        shift = tail[2]
+    bwd = shift[0] % 2 == 0
     rng = np.random.default_rng(1)
     before = (msda_windowed_fwd.launches, msda_windowed_bwd.launches)
-    fwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False)
-    bwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False)
-    assert (msda_windowed_fwd.launches, msda_windowed_bwd.launches) == (before[0] + 2, before[1] + 2)
+    fwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False, shift=shift)
+    if bwd:
+        bwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False, shift=shift)
+    assert (msda_windowed_fwd.launches, msda_windowed_bwd.launches) == (before[0] + 2, before[1] + 2 * bwd)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

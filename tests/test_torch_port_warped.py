@@ -43,6 +43,7 @@ from mvdetr_tpu_torch.models.deformable import MSDeformAttn, radial_offset_bias
 from mvdetr_tpu_torch.models.world_feat.modules import resolve_attn_mode
 from mvdetr_tpu_torch.ops.msda_warped import ms_deform_attn_warped, shadow_coords, shadow_warp_stack
 from mvdetr_tpu_torch.ops.msda_windowed import ms_deform_attn_windowed_bwd, windowed_attention
+from _torch_port import few_torch_threads  # noqa: F401
 
 RIG = dict(num_cam=3, img_shape=(96, 160), worldgrid_shape=(48, 96))
 WORLD_REDUCE, IMG_REDUCE = 2, 12
@@ -133,11 +134,12 @@ def test_shadow_warp_stack_gradient_matches_jax():
 
 
 # ---------------------------------------------------------------- the attention
-@pytest.mark.parametrize("levels,points", [(2, 4), (3, 8)])
+@pytest.mark.parametrize("levels,points", [(2, 4), (3, 8), (3, 2)])
 def test_warped_forward_matches_jax(levels, points):
-    """L*P = 8 (one JAX call) at a smooth random map, and L*P = 24 (three
-    JAX chunks of 8) at the rig's shadow map; offsets reach 1.5 cells past
-    the clamp; C = 2 camera copies of the queries."""
+    """L*P = 8 (one JAX call) at a smooth random map, L*P = 24 (three JAX
+    chunks of 8) at the rig's shadow map, and L*P = 6 (no multiple of the
+    kernels' groups of 4 pseudo-levels) at a smooth random map; offsets
+    reach 1.5 cells past the clamp; C = 2 camera copies of the queries."""
     h, w = 12, 24
     ref = _shadow_map() if points == 8 else _smooth_map(h, w, levels, points, seed=3)
     rng = np.random.default_rng(2)
@@ -157,6 +159,25 @@ def test_warped_gradients_match_jax_vjp():
     rng = np.random.default_rng(4)
     value, _, wgt = _inputs(rng, 1, 2, 3, h, w, 4, 8, 8, 0, 1)
     off = _off_integer(rng, (1, 2, h, w, 4, 3, 8, 2), RADIUS)
+    g = rng.standard_normal((1, 2 * h * w, 32)).astype(np.float32)
+    _, vjp = jax.vjp(lambda v, o, wg: jax_warped(v, ref, o, wg, radius=RADIUS, use_pallas=False),
+                     jnp.asarray(value), jnp.asarray(off), jnp.asarray(wgt))
+    jgrads = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (value, off, wgt)]
+    ms_deform_attn_warped(ts[0], shadow_coords(ref, h, w), ts[1], ts[2], radius=RADIUS).backward(torch.from_numpy(g))
+    for name, t, jg in zip(("value", "offsets", "weights"), ts, jgrads):
+        assert float(np.abs(np.asarray(jg)).max()) > 0, name
+        _close(t.grad, jg, 1e-5)
+
+
+def test_warped_gradients_match_jax_vjp_on_a_ragged_stack(few_torch_threads):
+    """As above at L*P = 6 pseudo-levels (3 levels of 2 points, a smooth
+    random map): a stack whose pseudo-levels leave a group of 4 unfilled."""
+    h, w, l, p = 12, 24, 3, 2
+    ref = _smooth_map(h, w, l, p, seed=7)
+    rng = np.random.default_rng(8)
+    value, _, wgt = _inputs(rng, 1, 2, l, h, w, 4, 8, p, 0, 1)
+    off = _off_integer(rng, (1, 2, h, w, 4, l, p, 2), RADIUS)
     g = rng.standard_normal((1, 2 * h * w, 32)).astype(np.float32)
     _, vjp = jax.vjp(lambda v, o, wg: jax_warped(v, ref, o, wg, radius=RADIUS, use_pallas=False),
                      jnp.asarray(value), jnp.asarray(off), jnp.asarray(wgt))
