@@ -297,6 +297,27 @@ def bound(nbytes: float, flops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def attention_bound(kernel: str, side: str, b, l, h, w, m, d, p, c=None, **_) -> dict:
+    """:func:`bound` of one call of B1 (``kernel="fwd"``) or of B2's ``side``
+    (``"query"``, ``"value"``, ``"both"``) at a shape (``c`` cameras,
+    default ``l``), with its ``bytes``: each input read once and each output
+    written once (bf16 value, f32 rest), and its f32 operations
+    (``ops/kernel_flops.py``)."""
+    from mvdetr_tpu_torch.ops import kernel_flops as kf
+
+    c = l if c is None else c
+    value, samples, queries = b * l * h * w * m * d, b * c * h * w * m * l * p, b * c * h * w * m * d
+    if kernel == "fwd":
+        nbytes, flops = 2 * value + 4 * (3 * samples + queries), kf.msda_fwd_flops(samples, d)
+    else:
+        query = 2 * value + 4 * (queries + 6 * samples)  # value, g, offsets + weights in, their cotangents out
+        value_side = 4 * (queries + 3 * samples + value)  # g, offsets, weights in, g_value out
+        nbytes = {"query": query, "value": value_side, "both": query + 4 * value}[side]
+        both, value_flops = kf.msda_bwd_flops(samples, d), kf.msda_bwd_value_flops(samples, d)
+        flops = {"query": both - value_flops, "value": value_flops, "both": both}[side]
+    return {**bound(nbytes, flops), "bytes": nbytes}
+
+
 def perturb_attention(model, seed: int, scale: float = 0.05) -> None:
     """Random weights for the zero-initialised offset and attention-weight
     projections, so offsets vary per query and some bind the clamp."""
@@ -409,7 +430,6 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
     boundary. Returns a record."""
     import torch
 
-    from mvdetr_tpu_torch.ops import kernel_flops as kf
     from mvdetr_tpu_torch.ops.msda_windowed import _fwd_plan, _value_align, ms_deform_attn_windowed, msda_windowed_fwd
 
     c = l if c is None else c
@@ -432,12 +452,11 @@ def fwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
     check(torch.equal(out, again), f"B1 {name}: two launches differ")
     rec = {"err": err}
     if timed:
-        nbytes = v.numel() * 2 + o.numel() * 4 + wg.numel() * 4 + out.numel() * 4
-        rec.update(bound(nbytes, kf.msda_fwd_flops(wg.numel(), d)))
+        rec.update(attention_bound("fwd", "both", b, l, h, w, m, d, p, c=c))
         rec["ms"] = cuda_ms(lambda: msda_windowed_fwd(v, o, wg, radius), 20)
         rec["plain_ms"] = cuda_ms(lambda: ms_deform_attn_windowed(v, o, wg, radius, flatten=False), 5)
         print(f"B1 {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} "
-              f"ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
+              f"ms ({rec['bound_by']}, {rec['bytes'] / 1e6:.1f} MB)")
     return rec
 
 
@@ -449,9 +468,8 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
     the value side copies (x, y) pairs). Returns a record."""
     import torch
 
-    from mvdetr_tpu_torch.ops import kernel_flops as kf
     from mvdetr_tpu_torch.ops.msda_windowed import (
-        _query_plan, _value_plan, ms_deform_attn_windowed_bwd, msda_windowed_bwd,
+        _query_plan, ms_deform_attn_windowed_bwd, msda_windowed_bwd, value_levels,
     )
 
     c = l if c is None else c
@@ -476,33 +494,31 @@ def bwd_case(name, b, l, h, w, m, d, p, radius, integer, rng, timed, c=None, ini
         msg = f", {float(exact.float().mean()):.3f} of offsets exact integers, {nonzero} nonzero cotangents there"
         check(nonzero == 0, f"B2 {name}: integer offsets got nonzero cotangents")
     plan = _query_plan(v, o, wg, g, radius)  # the plans the wrapper launched the two sides with
-    levels = _value_plan(h, w, l, p, radius)
+    levels = value_levels(h, w, l, p, radius)[0]
     print(f"B2 {name}: B={b} L={l} C={c} {h}x{w} M={m} D={d} P={p} R={radius}{shift_label(shift)} max_abs_err "
           f"g_value/g_offsets/g_weights {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, bitwise repeat{msg}; query side "
           f"plan vec={plan.vec} tile {plan.tile_y}x{plan.tile_x}, {plan.threads} threads, body {plan.body}; value "
           f"side {levels} planes a block")
     rec = {"err": max(errs)}
     if timed:
-        value_flops = kf.msda_bwd_value_flops(wg.numel(), d)
-        query_bytes = v.numel() * 2 + (o.numel() + wg.numel() + g.numel() + out[1].numel() + out[2].numel()) * 4
-        rec["query_bound_ms"] = bound(query_bytes, kf.msda_bwd_flops(wg.numel(), d) - value_flops)["bound_ms"]
+        query_bound, value_bound = (attention_bound("bwd", side, b, l, h, w, m, d, p, c=c)
+                                    for side in ("query", "value"))
+        query_bytes, value_bytes = query_bound["bytes"], value_bound["bytes"]
+        rec["query_bound_ms"] = query_bound["bound_ms"]
         rec["query_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="query"), 10)
         if timed == "query":
             print(f"B2 {name}: query side {rec['query_ms']:.4f} ms, bound {rec['query_bound_ms']:.4f} ms "
                   f"({query_bytes / 1e6:.1f} MB)")
             return rec
-        nbytes = (v.numel() * 2 + (o.numel() + wg.numel() + g.numel()) * 4
-                  + sum(x.numel() for x in out) * 4)
-        value_bytes = (o.numel() + wg.numel() + g.numel() + out[0].numel()) * 4
-        rec.update(bound(nbytes, kf.msda_bwd_flops(wg.numel(), d)))
-        rec["value_bound_ms"] = bound(value_bytes, value_flops)["bound_ms"]
+        rec.update(attention_bound("bwd", "both", b, l, h, w, m, d, p, c=c))
+        rec["value_bound_ms"] = value_bound["bound_ms"]
         rec["ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius), 10)
         rec["value_ms"] = cuda_ms(lambda: msda_windowed_bwd(v, o, wg, g, radius, side="value"), 10)
         rec["plain_ms"] = cuda_ms(lambda: ms_deform_attn_windowed_bwd(v, o, wg, g, radius), 3)
         print(f"B2 {name}: kernel {rec['ms']:.4f} ms (value side {rec['value_ms']:.4f} ms, bound "
               f"{rec['value_bound_ms']:.4f} ms, {value_bytes / 1e6:.1f} MB; query side {rec['query_ms']:.4f} ms, "
               f"bound {rec['query_bound_ms']:.4f} ms, {query_bytes / 1e6:.1f} MB), plain {rec['plain_ms']:.3f} ms, "
-              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {nbytes / 1e6:.1f} MB)")
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, {rec['bytes'] / 1e6:.1f} MB)")
     return rec
 
 

@@ -65,8 +65,8 @@
 // - value side (g_value): one block per (b, head m, chunk of 16 channels,
 //   value tile of kTileY x kTileX cells, group of G value planes), the
 //   planes fastest so that the blocks reading the same g run together; G
-//   (the plan's `levels`, _value_plan) is 1 at the flagship's P = 4 and 4
-//   over the shadow stack's P = 1, and the block has a group of kWarps warps
+//   (value_levels) is 1 at the flagship's P = 4 and 4 over the shadow
+//   stack's P = 1, and the block has a group of kWarps warps
 //   for each of its planes, which all share one staging of g. A sample of query
 //   (qy, qx) taps rows y0, y0+1 and columns x0, x0+1 with x0 - qx in [-R, R],
 //   so only the tile's halo, queries with qy in [y_t-R-1, y_t+kTileY-1+R]
@@ -888,12 +888,11 @@ int launch_query(const void* value, const void* offsets, const void* weights, co
 
 // The value side's shared memory at G planes per block, or -1 past what a
 // block may use; also the slab of halo rows and the stage buffer's floats.
-// ops/msda_windowed.py::_value_stage mirrors it.
 long long value_smem(int G, int H, int W, int P, int radius, long long* slab_rows, long long* slab_q,
                      long long* buf_floats) {
   // a slab of halo rows: as many as fit in the stage's bytes, at least one
   const long long stage_bytes = G == 1 ? kStageBytes : kStageBytesLevels;
-  const long long halo_cols = std::min<long long>(W, kTileX + 2LL * radius + 1);
+  const long long halo_cols = std::max<long long>(1, std::min<long long>(W, kTileX + 2LL * radius + 1));
   const long long halo_rows = std::min<long long>(H, kTileY + 2LL * radius + 1);
   const long long q_floats = kChunk + 3LL * P * G;  // a staged query: g, then its G levels' samples
   *slab_rows = std::max<long long>(1, std::min<long long>(halo_rows, stage_bytes / (halo_cols * q_floats * 4)));
@@ -930,17 +929,31 @@ int launch_value_levels(const float* offsets, const float* weights, const float*
   return (int)cudaGetLastError();
 }
 
-// the value side with `levels` (1, 2 or 4) value planes per block, the
-// plan of _value_plan
+// The value side's planes per block: `levels` (1 or 4) as given, or with
+// levels 0 the kernel's own choice, 4 where 4 planes' samples make up no
+// more than the flagship's P = 4 of one plane (P = 1, L >= 4) and fit a
+// block's shared memory (one staging of g for 4 planes, PERF.md §6),
+// else 1. Every count gives the same bits. -1 where the count does not fit.
+int value_levels(int H, int W, int L, int P, int radius, int levels, long long* smem) {
+  long long slab_rows, slab_q, buf_floats;
+  if (levels == 0) {
+    levels = P == 1 && L >= 4 && value_smem(4, H, W, P, radius, &slab_rows, &slab_q, &buf_floats) >= 0 ? 4 : 1;
+  }
+  if (levels != 1 && levels != 4) return -1;
+  *smem = value_smem(levels, H, W, P, radius, &slab_rows, &slab_q, &buf_floats);
+  return *smem < 0 ? -1 : levels;
+}
+
+// the value side at value_levels' planes per block
 int launch_value(const void* offsets, const void* weights, const void* g, void* g_value, int B, int C, int L, int H,
                  int row_org, int W, int M, int D, int P, int radius, int levels, cudaStream_t stream) {
   const auto* o = static_cast<const float*>(offsets);
   const auto* w = static_cast<const float*>(weights);
   const auto* gg = static_cast<const float*>(g);
   auto* gv = static_cast<float*>(g_value);
-  switch (levels) {
+  long long smem;
+  switch (value_levels(H, W, L, P, radius, levels, &smem)) {
     case 1: return launch_value_levels<1>(o, w, gg, gv, B, C, L, H, row_org, W, M, D, P, radius, stream);
-    case 2: return launch_value_levels<2>(o, w, gg, gv, B, C, L, H, row_org, W, M, D, P, radius, stream);
     case 4: return launch_value_levels<4>(o, w, gg, gv, B, C, L, H, row_org, W, M, D, P, radius, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -952,7 +965,8 @@ int launch_value(const void* offsets, const void* weights, const void* g, void* 
 // 3 both. row_halo 1: the value (and g_value) has H + 2 * radius rows, the
 // halo's (see above); 0: H rows, zero-padded. vec, tile_y, tile_x, body: the
 // query side's plan (_query_plan), checked again when the query side runs;
-// levels: the value side's (_value_plan), value planes per block. Returns
+// levels: the value side's planes per block, 0 for value_levels' choice
+// (1 or 4 to time another). Returns
 // cudaErrorInvalidValue on a plan or shape the kernels cannot take.
 extern "C" int msda_windowed_bwd_halo_sides_launch(const void* value, const void* offsets, const void* weights,
                                                    const void* g, void* g_value, void* g_offsets, void* g_weights,
@@ -994,6 +1008,15 @@ extern "C" int msda_windowed_bwd_launch(const void* value, const void* offsets, 
                                         int body, int levels, void* stream) {
   return msda_windowed_bwd_sides_launch(value, offsets, weights, g, g_value, g_offsets, g_weights, B, C, L, H, W, M,
                                         D, P, radius, vec, tile_y, tile_x, body, levels, 3, stream);
+}
+
+// The value side's planes per block at a shape, for `levels` as the launch
+// takes it, with its dynamic shared memory in *smem; -1 where it does not
+// fit a block.
+extern "C" int msda_windowed_bwd_value_levels(int H, int W, int L, int P, int radius, int levels, long long* smem) {
+  *smem = -1;
+  if (radius < 0 || P < 0) return -1;
+  return value_levels(H, W, L, P, radius, levels, smem);
 }
 
 extern "C" const char* msda_windowed_bwd_error_string(int code) {

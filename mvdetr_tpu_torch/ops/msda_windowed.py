@@ -217,10 +217,6 @@ def ms_deform_attn_windowed_bwd(
 # each on its own plane (the shadow stack), with a scalar tail for L mod 4
 # and for unaligned pointers; BODY_GENERIC: one sample at a time, any P.
 BODY_GENERIC, BODY_GROUPS, BODY_POINTS4 = 0, 1, 4
-# B2's value side: value planes per block it is built for, and the dynamic
-# shared memory one Hopper block may use
-VALUE_LEVELS = (1, 2, 4)
-SMEM_LIMIT = 232448
 
 
 class FwdPlan(NamedTuple):
@@ -290,52 +286,6 @@ def _query_plan(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tenso
     _, _, _, w, m, d = value.shape
     return _fwd_plan(w, m, d, offsets.shape[6], radius, value_align=min(_value_align(value), _value_align(g) // 2),
                      sample_align=min(_value_align(offsets), _value_align(weights)))
-
-
-def _value_stage(levels: int, h: int, w: int, p: int, radius: int) -> tuple[int, int]:
-    """``(dynamic shared memory bytes, halo queries a stage buffer holds)`` of
-    B2's value side at ``levels`` value planes per block, as
-    ``csrc/msda_windowed_bwd.cu::value_smem`` reckons them: per plane the
-    tile's 8 x (32 * 16 + 16) f32 accumulators and 4 warps' records of 32
-    samples (2 x 16 bytes each); two stage buffers, each a slab of as many
-    halo rows as fit 6 KiB (14 KiB with more than one plane; at least one
-    row), a halo query taking its 16 channels of g and its ``levels * p``
-    samples (3 floats each)."""
-    halo_cols, halo_rows = min(w, 32 + 2 * radius + 1), min(h, 8 + 2 * radius + 1)
-    q_floats = 16 + 3 * p * levels
-    stage_bytes = (6 if levels == 1 else 14) * 1024
-    slab_rows = max(1, min(halo_rows, stage_bytes // (halo_cols * q_floats * 4)))
-    buf_floats = (slab_rows * halo_cols * q_floats + 3) // 4 * 4
-    return 4 * (levels * (8 * (32 * 16 + 16) + 4 * 32 * 8) + 2 * buf_floats), slab_rows * halo_cols
-
-
-def _value_plan(h: int, w: int, l: int, p: int, radius: int) -> int:
-    """Value planes per block of B2's value side (one of ``VALUE_LEVELS``)
-    for ``l`` levels of ``p`` points on an ``h x w`` query grid; raises
-    ``ValueError`` on what the kernel cannot take.
-
-    A block stages each halo query's 16 channels of g once for all of its
-    planes, beside ``3 * p`` floats of samples a plane. At P = 4 (the
-    flagship) g is 16 of a query's 28 floats and one plane a block keeps 7
-    blocks of 4 warps on an SM; at P = 1 (the shadow stack) g is 16 of 19,
-    staged L times a tile, so a block takes the fewest planes whose samples
-    make up P = 4's, at most ``l`` and within the shared memory a block may
-    use. Every count gives the same bits."""
-    if radius < 0 or p < 0:
-        raise ValueError(f"msda_windowed_bwd: radius {radius} and P = {p} must be non-negative")
-
-    def fits(levels):
-        smem, slab_q = _value_stage(levels, h, w, p, radius)
-        return smem <= SMEM_LIMIT and slab_q < 2**15 and slab_q * p * levels < 2**24
-
-    want = max(1, min(l, -(-4 // max(p, 1))))  # the fewest planes whose samples make up P = 4's, at most l
-    levels = max(v for v in VALUE_LEVELS if v <= want)
-    while levels > 1 and not fits(levels):
-        levels = max(v for v in VALUE_LEVELS if v < levels)
-    if not fits(levels):
-        raise ValueError(f"msda_windowed_bwd: the value side's halo at radius {radius} on a grid {w} wide does not "
-                         f"fit a block's shared memory")
-    return levels
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,12 +377,25 @@ def load_bwd_library() -> ctypes.CDLL:
     lib.msda_windowed_bwd_sides_launch.restype = ctypes.c_int
     lib.msda_windowed_bwd_halo_sides_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     lib.msda_windowed_bwd_halo_sides_launch.restype = ctypes.c_int
+    lib.msda_windowed_bwd_value_levels.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.msda_windowed_bwd_value_levels.restype = ctypes.c_int
     lib.msda_windowed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.msda_windowed_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
 _BWD_SIDES = {"query": 1, "value": 2, "both": 3}
+
+
+def value_levels(h: int, w: int, l: int, p: int, radius: int, levels: int = 0) -> tuple[int, int]:
+    """B2's value side at ``l`` levels of ``p`` points on an ``h x w`` query
+    grid -> ``(value planes per block, dynamic shared memory bytes)``, as its
+    C entry picks them (``levels`` 0: 4 planes at P = 1 and L >= 4 where they
+    fit a block, else 1) or takes them (``levels`` 1 or 4); ``(-1, -1)`` where
+    they do not fit. Builds the kernel's library (the card's toolchain)."""
+    smem = ctypes.c_longlong()
+    got = load_bwd_library().msda_windowed_bwd_value_levels(h, w, l, p, int(radius), levels, ctypes.byref(smem))
+    return got, smem.value
 
 
 def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch.Tensor, g: torch.Tensor,
@@ -442,8 +405,9 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     all contiguous on one CUDA device -> f32 ``(g_value, g_offsets,
     g_weights)`` shaped as the inputs (``g_value`` over the ``H + 2R`` rows
     of the value with ``row_halo``). The query side (``g_offsets``,
-    ``g_weights``) is tiled by :func:`_query_plan`, the value side
-    (``g_value``) by :func:`_value_plan`.
+    ``g_weights``) is tiled by :func:`_query_plan`; the value side
+    (``g_value``) takes the value planes per block that its C entry picks
+    (:func:`value_levels`).
 
     ``side`` ``"value"`` or ``"query"`` runs only the kernel of ``g_value`` or
     of ``(g_offsets, g_weights)`` (to time each); the other outputs are then
@@ -463,7 +427,6 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
     if offsets.data_ptr() % 8:
         raise ValueError("msda_windowed_bwd: offsets must be 8-byte aligned (the kernel reads (x, y) pairs)")
     plan = _query_plan(value, offsets, weights, g, int(radius))
-    levels = _value_plan(h, w, l, p, int(radius))
     g_value = torch.empty(value.shape, dtype=torch.float32, device=value.device)
     g_off = torch.empty(offsets.shape, dtype=torch.float32, device=value.device)
     g_wgt = torch.empty(weights.shape, dtype=torch.float32, device=value.device)
@@ -475,7 +438,7 @@ def msda_windowed_bwd(value: torch.Tensor, offsets: torch.Tensor, weights: torch
         err = lib.msda_windowed_bwd_halo_sides_launch(
             value.data_ptr(), offsets.data_ptr(), weights.data_ptr(), g.data_ptr(),
             g_value.data_ptr(), g_off.data_ptr(), g_wgt.data_ptr(),
-            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, plan.body, levels,
+            b, c, l, h, w, m, d, p, int(radius), int(row_halo), plan.vec, plan.tile_y, plan.tile_x, plan.body, 0,
             _BWD_SIDES[side], stream,
         )
     if err != 0:

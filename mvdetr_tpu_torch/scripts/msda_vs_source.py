@@ -13,7 +13,7 @@ names (default both) and whose outputs alone are compared. The script reads
 from the source which plan arguments the entry takes after the radius
 (``vec, tile_y, tile_x``, ``body``, ``levels``, or none) and passes it those
 of the plan this source's wrappers use (:func:`_fwd_plan`,
-:func:`_query_plan`, :func:`_value_plan`). It is built with the package's
+:func:`_query_plan`, :func:`value_levels`). It is built with the package's
 ``nvcc`` flags into a temporary directory.
 
 Cases (inputs as ``chip_smoke.py`` makes them, numpy seed 0), by
@@ -33,11 +33,11 @@ First it prints one JSON line of each build's registers and spills
 entries with this source's plans, on the same inputs, and reports whether
 each output is bitwise equal and the largest difference, whether this
 source's wrapper gives the same bits as its entry, the bytes the call must
-move and their time at 3.35 TB/s; it times whole launches with CUDA events
+move and its bound (``chip_smoke.attention_bound``); it times whole launches with CUDA events
 in turns (other, this, this, other). ``--sweep`` also times this
 source's C entry under other plans, each of which must give the same bits:
 for B1 the tiles of SWEEP beside :func:`_fwd_plan`'s, for B2's value side
-the pseudo-levels per block of LEVEL_SWEEP beside :func:`_value_plan`'s.
+the pseudo-levels per block of LEVEL_SWEEP beside :func:`value_levels`'.
 
 Prints one JSON line per case. Runs on the card only.
 """
@@ -59,23 +59,21 @@ import torch
 from mvdetr_tpu_torch.ops import kernel_build
 from mvdetr_tpu_torch.ops.msda_windowed import (
     _BWD_SIDES,
-    VALUE_LEVELS,
     _fwd_plan,
     _query_plan,
     _value_align,
-    _value_plan,
     load_bwd_library,
     load_library,
     msda_windowed_bwd,
     msda_windowed_fwd,
+    value_levels,
 )
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FLAGSHIP = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4, radius=4)
 RAGGED_LEVELS = 54  # a shadow stack whose pseudo-levels do not fill the last group of 4
 # (tile_y, tile_x) of the sweep: 64, 128 and 256 threads of 16-byte taps at D=16
 SWEEP = [(2, 16), (4, 16), (2, 32), (8, 16), (4, 32)]
-LEVEL_SWEEP = VALUE_LEVELS  # B2's value side: value planes per block
+LEVEL_SWEEP = (1, 4)  # B2's value side: the value planes per block it is built for
 ENTRIES = {"fwd": "msda_windowed_fwd_launch", "bwd": "msda_windowed_bwd_sides_launch"}
 N_POINTERS = {"fwd": 4, "bwd": 7}
 BWD_NAMES = ("g_value", "g_offsets", "g_weights")
@@ -93,18 +91,6 @@ def cases(shape: str) -> list[tuple[str, dict]]:
     shadows = [("shadow-random", dict(shadow, integer=False)), ("shadow-integer", dict(shadow, integer=True)),
                (f"shadow-ragged{RAGGED_LEVELS}", dict(shadow, l=RAGGED_LEVELS, init=None, integer=False))]
     return {"flagship": flagship, "shadow": shadows, "both": flagship + shadows}[shape]
-
-
-def case_bytes(kernel: str, side: str, b, l, h, w, m, d, p, c=None, **_) -> int:
-    """Bytes one call must move at a case's shape: each input read once, each
-    output written once (bf16 value, f32 rest); B2 by ``side``."""
-    c = l if c is None else c
-    value, samples, queries = b * l * h * w * m * d, b * c * h * w * m * l * p, b * c * h * w * m * d
-    if kernel == "fwd":
-        return 2 * value + 4 * (3 * samples + queries)
-    query = 2 * value + 4 * (queries + 6 * samples)  # value, g, offsets + weights in, their cotangents out
-    value_side = 4 * (queries + 3 * samples + value)  # g, offsets, weights in, g_value out
-    return {"query": query, "value": value_side, "both": query + 4 * value}[side]
 
 
 def entry_plan_args(src: str, kernel: str) -> list[str]:
@@ -264,7 +250,7 @@ def main(argv: list[str]) -> int:
                 g = torch.from_numpy(rng.standard_normal((b, c, h, wd, v.shape[4] * v.shape[5]),
                                                          dtype=np.float32)).cuda()
                 plan = _query_plan(v, o, w, g, r)
-                values = {**plan._asdict(), "levels": _value_plan(h, wd, v.shape[1], p, r)}
+                values = {**plan._asdict(), "levels": value_levels(h, wd, v.shape[1], p, r)[0]}
                 run_other = lambda: launch_bwd(other, v, o, w, g, r, args.side,  # noqa: E731
                                                [values[k] for k in other_args])
                 run_this = lambda: launch_bwd(this, v, o, w, g, r, args.side,  # noqa: E731
@@ -273,7 +259,6 @@ def main(argv: list[str]) -> int:
                 wrapper = [outs[i] for i in SIDE_OUTPUTS[args.side]]
             a, z = run_other(), run_this()
             torch.cuda.synchronize()
-            nbytes = case_bytes(args.kernel, args.side, **shape)
             rec = {"case": name, "kernel": args.kernel, "shape": {k: shape[k] for k in ("b", "l", "c", "h", "w",
                                                                                      "m", "d", "p", "radius")
                                                                   if k in shape},
@@ -281,7 +266,7 @@ def main(argv: list[str]) -> int:
                    "bitwise_equal": {k: bool(torch.equal(x, y)) for k, x, y in zip(names, a, z)},
                    "max_abs_diff": {k: float((x - y).abs().max()) for k, x, y in zip(names, a, z)},
                    "wrapper_equal": all(torch.equal(x, y) for x, y in zip(wrapper, z)),
-                   "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                   **chip_smoke.attention_bound(args.kernel, args.side, **shape)}
             t_other, t_this = [], []
             for which in ("other", "this", "this", "other"):
                 if which == "other":

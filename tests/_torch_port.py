@@ -28,6 +28,21 @@ def windowed_inputs(rng, b, l, h, w, m, d, p, c, lo, hi):
     return value, off, wgt
 
 
+# B2's value side: (query rows, columns, levels or pseudo-levels, points) -> the value planes per block that its C
+# entry picks, 4 where 4 planes' samples make up no more than the flagship's P = 4 (P = 1, L >= 4), else 1; at the
+# shadow stack, the recipe's 32 pseudo-levels, the flagship and the recipe, ragged stacks and other P
+VALUE_PLANES = {
+    "shadow": ((60, 180, 56, 1), 4),
+    "recipe-shadow": ((15, 30, 32, 1), 4),
+    "flagship": ((60, 180, 7, 4), 1),
+    "recipe": ((15, 30, 4, 4), 1),
+    "ragged54": ((60, 180, 54, 1), 4),
+    "ragged3": ((60, 180, 3, 1), 1),
+    "ragged1": ((60, 180, 1, 1), 1),
+    "points2": ((9, 21, 3, 2), 1),
+    "points3": ((9, 21, 3, 3), 1),
+}
+
 
 @pytest.fixture(scope="module")
 def few_torch_threads():

@@ -17,13 +17,14 @@ from mvdetr_tpu_torch.ops.msda_windowed import (
     ms_deform_attn_windowed_bwd,
     msda_windowed_bwd,
     msda_windowed_fwd,
+    value_levels,
     windowed_attention,
 )
 from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
 from mvdetr_tpu_torch.ops import warp as warp_ops
 from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
-from _torch_port import cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
+from _torch_port import VALUE_PLANES, cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
 from chip_smoke import (
     LANE_STRESS_CASES, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu,
     gather_inputs, gather_run, gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
@@ -194,6 +195,25 @@ def test_kernels_over_the_shadow_stack_on_card(integer, tail, cuda_device):
     if bwd:
         bwd_case("shadow-card-test", **shape, integer=integer, rng=rng, timed=False, shift=shift)
     assert (msda_windowed_fwd.launches, msda_windowed_bwd.launches) == (before[0] + 2, before[1] + 2 * bwd)
+
+
+@pytest.mark.parametrize("radius", [4, 16])
+@pytest.mark.parametrize("name", sorted(VALUE_PLANES))
+def test_value_side_planes_per_block_on_card(name, radius, cuda_device):
+    """B2's C entry picks the value planes per block of ``VALUE_PLANES`` at
+    either radius, within the dynamic shared memory a block of this card may
+    use at each count it is built for (1 and 4, as picked or forced); one
+    plane at the flagship's P = 4 is the ~30 KB that keeps 7 blocks on an
+    SM; a halo that does not fit one block is refused."""
+    (h, w, l, p), planes = VALUE_PLANES[name]
+    limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    levels, smem = value_levels(h, w, l, p, radius)
+    assert levels == planes and 0 < smem <= limit
+    for forced in (1, 4):
+        assert value_levels(h, w, l, p, radius, forced)[0] in (forced, -1)
+    assert value_levels(h, w, l, p, radius, 2) == (-1, -1)
+    assert value_levels(60, 180, 7, 4, 4) == (1, 30176)
+    assert value_levels(4000, 4000, 7, 4, 1000) == (-1, -1)  # one halo row of one plane overflows the stage
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

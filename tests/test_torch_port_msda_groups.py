@@ -1,54 +1,42 @@
 """B1's and B2's plans over the shadow stack's pseudo-levels of one point
 (``ops/msda_windowed.py``): the body each plan picks (``BODY_GROUPS`` at
-P = 1, ``BODY_POINTS4`` at the flagship's P = 4), the value side's value
-planes per block and its shared memory, and the shapes and bytes of
-``scripts/msda_vs_source.py``'s shadow cases. Plans and counts only: the
-kernels run on the card (``tests/test_torch_port_cuda.py``,
-``chip_smoke.py`` phase 4b)."""
+P = 1, ``BODY_POINTS4`` at the flagship's P = 4), the shapes of
+``scripts/msda_vs_source.py``'s shadow cases, and the bytes and bounds of
+``chip_smoke.attention_bound``. Plans and counts only: the kernels, and the
+value side's planes per block that B2's C entry picks, are checked on the
+card (``tests/test_torch_port_cuda.py``, ``chip_smoke.py`` phase 4b)."""
 
 import pytest
 
-from mvdetr_tpu_torch.ops.msda_windowed import (
-    BODY_GENERIC,
-    BODY_GROUPS,
-    BODY_POINTS4,
-    SMEM_LIMIT,
-    VALUE_LEVELS,
-    _fwd_plan,
-    _value_plan,
-    _value_stage,
-)
+import chip_smoke
+from mvdetr_tpu_torch.ops.msda_windowed import BODY_GENERIC, BODY_GROUPS, BODY_POINTS4, _fwd_plan
 from mvdetr_tpu_torch.scripts import msda_vs_source
-from _torch_port import few_torch_threads  # noqa: F401
+from _torch_port import VALUE_PLANES, few_torch_threads  # noqa: F401
 
-HBM_BYTES_PER_S = 3.35e12
-
-# (h, w, pseudo-levels or levels, points) -> (body, value planes per block)
-PLANS = {
-    "shadow": ((60, 180, 56, 1), (BODY_GROUPS, 4)),
-    "recipe-shadow": ((15, 30, 32, 1), (BODY_GROUPS, 4)),
-    "flagship": ((60, 180, 7, 4), (BODY_POINTS4, 1)),
-    "recipe": ((15, 30, 4, 4), (BODY_POINTS4, 1)),
-    "ragged54": ((60, 180, 54, 1), (BODY_GROUPS, 4)),
-    "ragged3": ((60, 180, 3, 1), (BODY_GROUPS, 2)),
-    "ragged1": ((60, 180, 1, 1), (BODY_GROUPS, 1)),
-    "points2": ((9, 21, 3, 2), (BODY_GENERIC, 2)),
-    "points3": ((9, 21, 3, 3), (BODY_GENERIC, 2)),
+# (h, w, pseudo-levels or levels, points) of VALUE_PLANES -> body
+BODIES = {
+    "shadow": BODY_GROUPS,
+    "recipe-shadow": BODY_GROUPS,
+    "flagship": BODY_POINTS4,
+    "recipe": BODY_POINTS4,
+    "ragged54": BODY_GROUPS,
+    "ragged3": BODY_GROUPS,
+    "ragged1": BODY_GROUPS,
+    "points2": BODY_GENERIC,
+    "points3": BODY_GENERIC,
 }
 
 
 @pytest.mark.parametrize("radius", [4, 16])
-@pytest.mark.parametrize("name", sorted(PLANS))
-def test_plans_pick_the_body_and_the_value_planes(name, radius, few_torch_threads):
+@pytest.mark.parametrize("name", sorted(BODIES))
+def test_plans_pick_the_body(name, radius, few_torch_threads):
     """P = 1 stacks walk groups of 4 pseudo-levels (their tail, L mod 4,
-    inside the same kernel), P = 4 the flagship's level body; the value side
-    stages g once for as many planes as make up P = 4's samples, never more
-    than L, at either radius; the tile is the flagship's."""
-    (h, w, l, p), (body, levels) = PLANS[name]
+    inside the same kernel), P = 4 the flagship's level body, other P the
+    generic loop, at either radius; the tile is the flagship's."""
+    (_, w, _, p), _ = VALUE_PLANES[name]
     plan = _fwd_plan(w, 8, 16, p, radius)
-    assert plan.body == body
+    assert plan.body == BODIES[name]
     assert (plan.vec, plan.tile_x, plan.threads) == (8, 16, 128 if radius < 8 else 256)
-    assert _value_plan(h, w, l, p, radius) == levels
 
 
 @pytest.mark.parametrize("align", [4, 8])
@@ -60,40 +48,10 @@ def test_unaligned_samples_leave_the_points4_body_only(align):
     assert _fwd_plan(180, 8, 16, 1, 4, sample_align=align).body == BODY_GROUPS
 
 
-@pytest.mark.parametrize("p", [1, 2, 3, 4, 8])
-def test_value_smem_stays_within_a_block(p):
-    """The value side's dynamic shared memory at the planes the planner
-    picks, and at every smaller count, is within the 232,448 bytes a Hopper
-    block may use, over levels 1-56, radii 0-32 and the recipe's, the
-    flagship's and the BEV's grids; one plane at the flagship's P = 4 is the
-    ~30 KB that keeps 7 blocks on an SM."""
-    for l in (1, 3, 7, 32, 56):
-        for radius in (0, 1, 4, 8, 16, 32):
-            for h, w in ((15, 30), (60, 180), (120, 360)):
-                levels = _value_plan(h, w, l, p, radius)
-                assert levels in VALUE_LEVELS and levels <= max(1, l)
-                for g in VALUE_LEVELS:
-                    if g <= levels:
-                        assert _value_stage(g, h, w, p, radius)[0] <= SMEM_LIMIT
-    assert _value_stage(1, 60, 180, 4, 4)[0] == 30176
-
-
-@pytest.mark.parametrize("kwargs", [
-    dict(h=4000, w=4000, l=7, p=4, radius=1000),  # one halo row of one plane overflows the stage
-    dict(h=60, w=180, l=7, p=4, radius=-1),
-    dict(h=60, w=180, l=7, p=-1, radius=4),
-])
-def test_value_plan_raises_on_what_the_kernel_cannot_take(kwargs):
-    with pytest.raises(ValueError):
-        _value_plan(**kwargs)
-
-
 def test_msda_vs_source_shadow_cases():
     """The shadow cases are ``chip_smoke.SHADOW_ATTENTION`` (random offsets,
     and the radial init of 7 cameras x 8 points) and a ragged stack of 54
-    pseudo-levels; at the stack's shape B1 moves 1199.9 MB and B2 2632.1 MB
-    (value side 1509.6, query side 2012.8), whose times at 3.35 TB/s are the
-    bounds 0.358 and 0.786 ms (0.451 and 0.601) of PERF.md."""
+    pseudo-levels."""
     cases = dict(msda_vs_source.cases("shadow"))
     assert sorted(cases) == ["shadow-integer", "shadow-ragged54", "shadow-random"]
     stack = dict(b=2, l=56, c=7, h=60, w=180, m=8, d=16, p=1, radius=4)
@@ -101,15 +59,30 @@ def test_msda_vs_source_shadow_cases():
         assert {k: cases[name][k] for k in stack} == stack and cases[name]["init"] == (7, 8)
     assert cases["shadow-integer"]["integer"] and not cases["shadow-random"]["integer"]
     assert cases["shadow-ragged54"]["l"] == 54 and cases["shadow-ragged54"]["l"] % 4
-    got = {(k, side): msda_vs_source.case_bytes(k, side, **stack)
-           for k, side in (("fwd", "both"), ("bwd", "both"), ("bwd", "value"), ("bwd", "query"))}
-    assert got == {("fwd", "both"): 1_199_923_200, ("bwd", "both"): 2_632_089_600,
-                   ("bwd", "value"): 1_509_580_800, ("bwd", "query"): 2_012_774_400}
-    bounds = {key: round(n / HBM_BYTES_PER_S * 1e3, 3) for key, n in got.items()}
-    assert bounds == {("fwd", "both"): 0.358, ("bwd", "both"): 0.786, ("bwd", "value"): 0.451,
-                      ("bwd", "query"): 0.601}
-    flagship = dict(msda_vs_source.cases("flagship"))["flagship-random"]
-    assert msda_vs_source.case_bytes("bwd", "both", **flagship) == 1_006_387_200  # PERF.md's 1006.4 MB
+
+
+# (case, kernel, side) -> (bytes, bound in ms): PERF.md's kernel table, B1 and B2
+BOUNDS = {
+    ("shadow-random", "fwd", "both"): (1_199_923_200, 0.358),
+    ("shadow-random", "bwd", "both"): (2_632_089_600, 0.786),
+    ("shadow-random", "bwd", "value"): (1_509_580_800, 0.451),
+    ("shadow-random", "bwd", "query"): (2_012_774_400, 0.601),
+    ("flagship-random", "fwd", "both"): (522_547_200, 0.156),
+    ("flagship-random", "bwd", "both"): (1_006_387_200, 0.300),
+    ("flagship-random", "bwd", "value"): (561_254_400, 0.168),
+    ("flagship-random", "bwd", "query"): (928_972_800, 0.277),
+}
+
+
+@pytest.mark.parametrize("case, kernel, side", sorted(BOUNDS))
+def test_attention_bounds_of_the_cases(case, kernel, side):
+    """``chip_smoke.attention_bound`` at ``msda_vs_source``'s cases, the
+    yardstick of chip_smoke's B1 / B2 records and of the script's lines:
+    each input read once and each output written once, over 3.35 TB/s,
+    above the operations' time at the f32 rate."""
+    shape = dict(msda_vs_source.cases("both"))[case]
+    got = chip_smoke.attention_bound(kernel, side, **shape)
+    assert (got["bytes"], round(got["bound_ms"], 3), got["bound_by"]) == (*BOUNDS[case, kernel, side], "bytes")
 
 
 def test_msda_vs_source_reads_each_revisions_plan_arguments():
