@@ -835,7 +835,7 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None, scal
 
     from mvdetr_tpu_torch.ops import kernel_flops as kf
     from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
-    from mvdetr_tpu_torch.ops.warp import warp_bwd
+    from mvdetr_tpu_torch.ops.warp import body, warp_bwd
 
     out = warp_bwd(g, sx, sy, h, w)
     again = warp_bwd(g, sx, sy, h, w)
@@ -856,7 +856,7 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None, scal
     check(worst <= 1e-5, f"B3 {name}: error {err} beyond rtol {rtol} + 1e-5" + (" of scale" if scaled else ""))
     check(torch.equal(out, again), f"B3 {name}: two launches differ")
     check(not exact or torch.equal(out, ref), f"B3 {name}: not bitwise equal to the plain version")
-    rec = {"err": err}
+    rec = {"err": err, "body": list(body(g, out))}
     if bev_hw is not None:
         nbytes = (g.numel() + out.numel()) * g.element_size() + (sx.numel() + sy.numel()) * 4
         rec.update(bound(nbytes, kf.warp_bwd_flops(g.numel())))
@@ -865,7 +865,7 @@ def warp_case(name, g, sx, sy, h, w, bev_hw=None, exact=False, ref_xy=None, scal
         rec["library_ms"], lib_dtype = grid_sampler_backward_ms(g, sx, sy, h, w, bev_hw)
         print(f"B3 {name}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, grid_sampler_2d_backward "
               f"({lib_dtype}) {rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
-              f"{nbytes / 1e6:.1f} MB)")
+              f"{nbytes / 1e6:.1f} MB); walk body {rec['body'][0]} lanes a cell, {rec['body'][1]} channels a lane")
     return rec
 
 
@@ -894,7 +894,7 @@ def warp_flagship_inputs(rng, rig=None, batch=None, device="cuda", dtype=None) -
 
 
 WARP_STRESS_NAMES = ("one-cell", "segment-lengths", "all-outside", "nan-far", "C5-f32", "C40-f32", "C300-bf16",
-                     "sentinel-top-bit", "misaligned")
+                     "sentinel-top-bit", "misaligned", "dense-narrow", "edges", "C8-bf16", "misaligned-C16")
 
 
 def warp_stress_cases(rng, device="cuda") -> dict:
@@ -949,6 +949,27 @@ def warp_stress_cases(rng, device="cuda") -> dict:
     misaligned = case(rng.standard_normal((2 * 600 * 128 + 1,)), *uniform(2, 600, 11, 17), 11, 17)
     misaligned["g"] = misaligned["g"][1:].view(2, 600, 128)
     cases["misaligned"] = misaligned
+
+    def exact_xy(lo, hi, shape):  # integers in [lo, hi) plus k/16: bases there, weights exact in bf16
+        return rng.integers(lo, hi, shape) + rng.integers(0, 16, shape) / 16
+
+    # gather mode's shape in small: C = 16, ~100-170 entries a cell over 4 maps (bases on every row and column of
+    # the grid, -1 included); exact, so the narrow body (8 cells of 4 lanes a warp) equals the plain version
+    cases["dense-narrow"] = case(rng.integers(-8, 9, (4, 9000, 16)), exact_xy(-1, 20, (4, 9000)),
+                                 exact_xy(-1, 12, (4, 9000)), 12, 20, exact=True)
+    # the base grid's edges: bases on row and column -1 and on the last row and column (whose second tap falls
+    # outside), integer coordinates among them (a zero weight); 7 x 9 maps, so a warp's 8 cells cross rows and maps
+    q = 1500
+    edge_x = np.where(rng.random((3, q)) < 0.5, rng.choice([-1, 0, 7, 8], (3, q)), rng.integers(-1, 9, (3, q)))
+    edge_y = np.where(rng.random((3, q)) < 0.5, rng.choice([-1, 0, 5, 6], (3, q)), rng.integers(-1, 7, (3, q)))
+    cases["edges"] = case(rng.integers(-8, 9, (3, q, 16)), edge_x + rng.integers(0, 16, (3, q)) / 16,
+                          edge_y + rng.integers(0, 16, (3, q)) / 16, 7, 9, exact=True)
+    # narrow bodies with idle lanes: C = 8 (two of a cell's four lanes load), and C = 16 two bytes into its
+    # storage (scalar lanes, 16 a cell)
+    cases["C8-bf16"] = case(rng.standard_normal((3, 2000, 8)), *uniform(3, 2000, 9, 13), 9, 13)
+    narrow = case(rng.standard_normal((3 * 2000 * 16 + 1,)), *uniform(3, 2000, 9, 13), 9, 13)
+    narrow["g"] = narrow["g"][1:].view(3, 2000, 16)
+    cases["misaligned-C16"] = narrow
     check(tuple(cases) == WARP_STRESS_NAMES, f"B3 stress cases {tuple(cases)} are not WARP_STRESS_NAMES")
     return cases
 
@@ -984,13 +1005,17 @@ def device_activities(prof) -> list:
 
 
 MEMSET = "Memset (Device)"  # torch.profiler's name for a cudaMemsetAsync on the card
-# a B3 stage's kernels by a part of their names; the sort is all else a call runs (CUB's kernels and memset)
-WARP_STAGE_KERNELS = (("keys_kernel", "keys"), ("starts_kernel", "starts"), ("gather_kernel", "gather"))
+# a B3 stage's kernels by a part of their names; the sort is all else a call runs (CUB's kernels and memset).
+# The index pass (segment starts and the samples' weights) and the walk (walk_kernel, wide_walk_kernel) are this
+# source's; the starts pass, and the walk named gather_kernel, are the second design's, which
+# scripts/warp_vs_source.py still runs
+WARP_STAGE_KERNELS = (("keys_kernel", "keys"), ("index_kernel", "index"), ("starts_kernel", "starts"),
+                      ("walk_kernel", "walk"), ("gather_kernel", "walk"))
 
 
 def warp_stage_ms(fn, reps: int = 10) -> dict:
-    """Device time of one B3 call ``fn`` by stage (keys, sort, starts,
-    gather; a source with no starts pass has none), the mean over ``reps``
+    """Device time of one B3 call ``fn`` by stage (keys, sort, index, walk;
+    the second design's: keys, sort, starts, walk), the mean over ``reps``
     calls traced by torch.profiler after a warm-up, and ``"all"``, their sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1368,7 +1393,9 @@ def gather_kernel_phase(rng) -> dict:
     c = gather_warp_inputs(rng, AIO_ATTENTION, torch.bfloat16)
     aio = warp_case("aio-bf16", c["g"], c["sx"], c["sy"], c["h"], c["w"], bev_hw=c["bev_hw"], scaled=True)
     b3["errs"].append(aio["err"])
-    b3["aio"] = {k: aio[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    b3["aio"] = {k: aio[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "body")}
+    b3["aio"]["device_ms"] = warp_stage_ms(lambda: warp_bwd(c["g"], c["sx"], c["sy"], c["h"], c["w"]))
+    print("B3 aio device time by stage: " + ", ".join(f"{k} {v:.4f} ms" for k, v in b3["aio"]["device_ms"].items()))
     c32 = gather_warp_inputs(rng, AIO_ATTENTION, torch.float32, reach=6.0)
     b3["errs"].append(warp_case("aio-f32", c32["g"], c32["sx"], c32["sy"], c32["h"], c32["w"], scaled=True)["err"])
     del c, c32
@@ -2911,7 +2938,7 @@ def main(argv: list[str] | None = None) -> int:
     rows[1].update({k: b2[k] for k in ("value_ms", "query_ms", "value_bound_ms", "query_bound_ms", "ms_integer",
                                        "value_ms_integer", "query_ms_integer", "query_ms_R16")})
     # B3: its device time by stage, the flagship's segments
-    rows[2].update({k: b3[k] for k in ("device_ms", "memset_ms", "step_ms", "segments")})
+    rows[2].update({k: b3[k] for k in ("device_ms", "memset_ms", "step_ms", "segments", "body")})
     # the shadow path: launches by path, and each kernel's times at the shadow shape beside its bound
     for row, key in zip(rows, ("b1", "b2", "b3")):
         rec = shadow[key]
@@ -2920,16 +2947,16 @@ def main(argv: list[str] | None = None) -> int:
     rows[0]["ms_integer_shadow"] = shadow["b1"]["ms_integer"]
     rows[1].update({f"{k}_shadow": shadow["b2"][k] for k in ("value_ms", "query_ms", "value_bound_ms",
                                                              "query_bound_ms", "ms_integer")})
-    rows[2].update({f"{k}_shadow": shadow["b3"][k] for k in ("library_ms", "device_ms", "segments")})
+    rows[2].update({f"{k}_shadow": shadow["b3"][k] for k in ("library_ms", "device_ms", "segments", "body")})
     # gather mode: B3 at the coordinates of the flagship's gather backward (and aio's), the attention layer's times
     # (plain forward, B3 backward) and its errors against the CPU and against B1/B2; B1 at the checkpoint's radius
     rows[2].update({f"{k}_gather": gather["b3"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                                              "device_ms", "segments")})
+                                                              "device_ms", "segments", "body")})
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], *gather["b3"]["errs"])
     rows[2]["aio_gather"] = gather["b3"]["aio"]
     # deform_conv: B3 at the coordinates of its input gradient (f32, C=128, 14 maps of 9*120*360 taps)
     rows[2].update({f"{k}_deform_conv": deform[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                                             "device_ms", "segments", "module_ms")})
+                                                             "device_ms", "segments", "module_ms", "body")})
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], deform["err"])
     rows[2]["gather_layer_ms"] = gather["times"]
     rows[2]["gather_attention_max_abs_err"] = max(gather["errs"])

@@ -19,6 +19,7 @@ augmentation affine, never from parameters.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -78,9 +79,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entries of a build of ``csrc/warp_bwd.cu``."""
     lib.warp_bwd_temp_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_size_t)]
     lib.warp_bwd_temp_bytes.restype = ctypes.c_int
-    lib.warp_bwd_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_size_t] + [ctypes.c_int] * 7
+    lib.warp_bwd_launch.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_size_t] + [ctypes.c_int] * 7
                                     + [ctypes.c_void_p])
     lib.warp_bwd_launch.restype = ctypes.c_int
+    lib.warp_bwd_body.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                                  + [ctypes.POINTER(ctypes.c_int)] * 2)
+    lib.warp_bwd_body.restype = ctypes.c_int
     lib.warp_bwd_error_string.argtypes = [ctypes.c_int]
     lib.warp_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -96,35 +100,42 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_LIMIT = 2**31 - 1
 
 
-def sort_end_bit(num_cells: int) -> int:
-    """Bits of B3's sort keys: the cells ``0 .. num_cells - 1`` and the
-    sentinel ``num_cells`` of a tap outside the map."""
-    return max(1, int(num_cells).bit_length())
+def sort_end_bit(h: int, w: int) -> int:
+    """Bits of B3's sort keys: a sample's base cell on the per-map ``(h+1) x
+    (w+1)`` grid, ``0 .. (h+1)*(w+1) - 1``, and the sentinel ``(h+1)*(w+1)``
+    of a sample whose four taps fall outside the map."""
+    return max(1, ((int(h) + 1) * (int(w) + 1)).bit_length())
 
 
 class Scratch(NamedTuple):
-    """B3's buffers between its stages: keys and entry indices before and
-    after the sort, segment starts, the sort's temporary storage."""
+    """B3's buffers between its stages: keys and sample indices before and
+    after the sort, the samples' fractions before and after it, the bins'
+    segment starts, the sort's temporary storage."""
 
-    keys: torch.Tensor  # [2, 4*B*Q] int32 (unsigned in the kernel): unsorted, sorted
-    order: torch.Tensor  # [2, 4*B*Q] int32
-    start: torch.Tensor  # [B*h*w + 1] int32
+    keys: torch.Tensor  # [2, B*Q] int32 (unsigned in the kernel): unsorted, sorted
+    order: torch.Tensor  # [2, B*Q] int32
+    rec: torch.Tensor  # [2, B*Q, 2] f32: each sample's (wx1, wy1) in input order, then in sorted order
+    start: torch.Tensor  # [B*(h+1)*(w+1) + 1] int32: a bin (base cell, map) is base * B + b
     temp: torch.Tensor  # uint8, the sort's temporary storage
     end_bit: int
 
 
 def check_sizes(b: int, q: int, h: int, w: int) -> None:
-    """Raise unless entries ``4*B*Q`` and cells ``B*h*w`` (with the sentinel)
-    fit the kernel's int32 indices."""
-    if 4 * b * q >= _INT32_LIMIT or b * h * w >= _INT32_LIMIT:
-        raise ValueError(f"warp_bwd: 4*B*Q = {4 * b * q} and B*h*w = {b * h * w} must be below 2^31 - 1, the "
-                         "kernel's int32 indices")
+    """Raise unless samples ``B*Q``, cells ``B*h*w`` and bins
+    ``B*(h+1)*(w+1)`` (with the sentinel's) fit the kernel's int32 indices
+    and ``h, w < 2^24`` its f32 grid coordinates."""
+    bins = b * (h + 1) * (w + 1)
+    if b * q >= _INT32_LIMIT or b * h * w >= _INT32_LIMIT or bins >= _INT32_LIMIT:
+        raise ValueError(f"warp_bwd: B*Q = {b * q}, B*h*w = {b * h * w} and B*(h+1)*(w+1) = {bins} must be below "
+                         "2^31 - 1, the kernel's int32 indices")
+    if h >= 2**24 or w >= 2**24:
+        raise ValueError(f"warp_bwd: h = {h} and w = {w} must be below 2^24, exact in f32")
 
 
 @functools.lru_cache(maxsize=64)
 def _temp_bytes(lib: ctypes.CDLL, n: int, end_bit: int, device: torch.device) -> int:
     nbytes = ctypes.c_size_t(0)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext():
         _raise_on(lib, lib.warp_bwd_temp_bytes(n, end_bit, ctypes.byref(nbytes)))
     return nbytes.value
 
@@ -133,11 +144,12 @@ def alloc_scratch(lib: ctypes.CDLL, b: int, q: int, h: int, w: int, device) -> S
     """Scratch for ``lib``'s B3 on ``B`` views of ``Q`` samples onto
     ``h x w``; the sort's temporary bytes come from ``warp_bwd_temp_bytes``."""
     check_sizes(b, q, h, w)
-    n, end_bit = 4 * b * q, sort_end_bit(b * h * w)
+    n, end_bit = b * q, sort_end_bit(h, w)
     device = torch.device(device)
     return Scratch(keys=torch.empty((2, n), dtype=torch.int32, device=device),
                    order=torch.empty((2, n), dtype=torch.int32, device=device),
-                   start=torch.empty(b * h * w + 1, dtype=torch.int32, device=device),
+                   rec=torch.empty((2, n, 2), dtype=torch.float32, device=device),
+                   start=torch.empty(b * (h + 1) * (w + 1) + 1, dtype=torch.int32, device=device),
                    temp=torch.empty(_temp_bytes(lib, n, end_bit, device), dtype=torch.uint8, device=device),
                    end_bit=end_bit)
 
@@ -152,8 +164,18 @@ def launch(lib: ctypes.CDLL, g, sx, sy, out, scratch: Scratch) -> None:
         stream = torch.cuda.current_stream(g.device).cuda_stream
         _raise_on(lib, lib.warp_bwd_launch(
             g.data_ptr(), sx.data_ptr(), sy.data_ptr(), out.data_ptr(), s.keys[0].data_ptr(), s.keys[1].data_ptr(),
-            s.order[0].data_ptr(), s.order[1].data_ptr(), s.start.data_ptr(), s.temp.data_ptr(), s.temp.numel(),
-            b, q, h, w, c, _DTYPE_CODES[g.dtype], s.end_bit, stream))
+            s.order[0].data_ptr(), s.order[1].data_ptr(), s.rec.data_ptr(), s.start.data_ptr(), s.temp.data_ptr(),
+            s.temp.numel(), b, q, h, w, c, _DTYPE_CODES[g.dtype], s.end_bit, stream))
+
+
+def body(g: torch.Tensor, out: torch.Tensor) -> tuple:
+    """The walk's body that B3's C entry picks for ``g`` and ``out`` (on the
+    card): ``(lanes a cell, channels a lane)``."""
+    lib = load_library()
+    lanes, vec = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib, lib.warp_bwd_body(g.shape[-1], _DTYPE_CODES[g.dtype], g.data_ptr(), out.data_ptr(),
+                                     ctypes.byref(lanes), ctypes.byref(vec)))
+    return lanes.value, vec.value
 
 
 def _raise_on(lib: ctypes.CDLL, err: int) -> None:
@@ -167,9 +189,10 @@ def warp_bwd(g: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor, h: int, w: int
     coordinates ``sx/sy [B, Q]``, contiguous on one CUDA device ->
     ``grad [B, h, w, C]`` in ``g.dtype``.
 
-    The kernel's stages key each (query, tap) by its destination cell, sort
-    the keys (index plumbing), find each cell's segment and sum the cell's
-    taps in query order. Raises on any input the kernel does not take; never
+    The kernel's stages key each sample by its base cell, sort the keys
+    (index plumbing), find each (base cell, map) segment and the samples'
+    weights, and sum each cell's taps in query order, merging the four
+    base cells it draws from. Raises on any input the kernel does not take; never
     computes on another path. Adds one to ``warp_bwd.launches`` per launch."""
     if g.device.type != "cuda":
         raise ValueError(f"warp_bwd runs on a CUDA device only, got g on {g.device}")

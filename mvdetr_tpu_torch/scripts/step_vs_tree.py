@@ -2,7 +2,7 @@
 repository, on the card, in turns.
 
     python -m mvdetr_tpu_torch.scripts.step_vs_tree OTHER_ROOT [--steps 6] [--rounds 1] [--profile PATH]
-        [--n_points 4|8]
+        [--n_points 4|8] [--attn_mode auto|gather]
 
 ``OTHER_ROOT`` is a checkout of the repository, for instance another commit
 unpacked with ``git archive`` into the git-ignored ``.checkout/``. A round
@@ -11,7 +11,9 @@ over the call weighs on both alike. Each run is a process of its own, from
 the tree's root: it builds that tree's kernels, then takes one warm-up and
 ``--steps`` timed train steps of the flagship at full width (``chip_smoke.py``'s
 bench rig and batch: 7 cameras, 720x1280 frames, bf16, batch 2; ``--n_points
-8``: the shadow configuration, warped attention over 56 pseudo-levels) and prints
+8``: the shadow configuration, warped attention over 56 pseudo-levels;
+``--attn_mode gather``: gather attention, the reference MVDeTr's, whose
+value gradients are B3 launches at gather's coordinates) and prints
 one JSON line: the median step, the timed steps and the last loss. The
 card's name and power limit come first. Raises without a card.
 
@@ -45,7 +47,7 @@ from mvdetr_tpu_torch.train import batch_to_device, create_train_state, train_st
 rig = cs.bench_rig()
 batch = batch_to_device(cs.train_batch(rig, 2, world_reduce=4, img_reduce=12, seed=0), "cuda")
 model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
-                        n_points={n_points}, device="cuda", seed=0)
+                        n_points={n_points}, attn_mode="{attn_mode}", device="cuda", seed=0)
 state = create_train_state(model, lr=cs.LR, total_steps=cs.TOTAL_STEPS)
 gen = torch.Generator(device="cuda").manual_seed(0)
 times = []
@@ -66,10 +68,11 @@ if {profile}:
 """
 
 
-def run(root: str, steps: int, profile: bool = False, n_points: int = 4) -> tuple:
+def run(root: str, steps: int, profile: bool = False, n_points: int = 4, attn_mode: str = "auto") -> tuple:
     """One run of the step in ``root``: its STEP record and, with
     ``profile``, its device time by kernel name ``{name: [count, ms]}``."""
-    proc = subprocess.run([sys.executable, "-c", CHILD.format(steps=steps, profile=profile, n_points=n_points)],
+    proc = subprocess.run([sys.executable, "-c", CHILD.format(steps=steps, profile=profile, n_points=n_points,
+                                                              attn_mode=attn_mode)],
                           cwd=root,
                           capture_output=True, text=True, timeout=900)
     lines = {tag: [line[len(tag):] for line in proc.stdout.splitlines() if line.startswith(tag)]
@@ -100,6 +103,8 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", metavar="PATH", help="profile one more step of each run; tables to PATH")
     parser.add_argument("--n_points", type=int, choices=(4, 8), default=4,
                         help="8: the shadow configuration (warped attention)")
+    parser.add_argument("--attn_mode", choices=("auto", "gather"), default="auto",
+                        help="gather: gather attention (B3 for each encoder layer's value gradient)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("step_vs_tree times the card: no CUDA device is available")
@@ -112,7 +117,7 @@ def main(argv=None) -> int:
     for _ in range(args.rounds):
         for label in ("this", "other", "other", "this"):
             rec, table = run(ROOT if label == "this" else other, args.steps, profile=bool(args.profile),
-                             n_points=args.n_points)
+                             n_points=args.n_points, attn_mode=args.attn_mode)
             medians[label].append(rec["median_ms"])
             profiles.append({"tree": label, "card": smi, "device_ms_by_kernel": table})
             print(json.dumps({"tree": label, "root": ROOT if label == "this" else other, **rec}), flush=True)

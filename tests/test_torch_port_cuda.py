@@ -161,8 +161,9 @@ def test_warp_bwd_stress_cases_on_card(name, cuda_device):
     """B3 at ``chip_smoke.warp_stress_cases`` through ``chip_smoke.warp_case``:
     within rtol 2^-6 (bf16; 0 in f32) + 1e-5 of the plain version, two
     launches bitwise equal, bitwise equal to the plain version where every
-    partial sum is exact (one cell of 3000 entries per tap), NaN coordinates
-    giving the bits of far-out ones; every tap outside gives zeros."""
+    partial sum is exact (one cell of 3000 entries per tap, gather mode's
+    shape in small, the base grid's edges), NaN coordinates giving the bits
+    of far-out ones; every tap outside gives zeros."""
     case = warp_stress_cases(np.random.default_rng(0))[name]
     before = warp_bwd.launches
     warp_case(name, case["g"], case["sx"], case["sy"], case["h"], case["w"], exact=case["exact"],
@@ -321,26 +322,53 @@ def test_gather_and_aio_models_launch_b3_per_layer_on_card(kw, cuda_device):
         assert torch.equal(p, runs[1][1][n]), n
 
 
-def test_warp_bwd_scratch_on_card(rng, cuda_device):
-    """The wrapper's scratch: 18-bit keys at the flagship's 14 x 90 x 160
-    cells and CUB's temporary bytes; after a launch the keys are sorted and
-    end at most at the sentinel, and the output is the wrapper's."""
-    lib = warp_ops.load_library()
-    s = warp_ops.alloc_scratch(lib, 14, 300, 90, 160, cuda_device)
-    assert s.end_bit == 18 and s.keys.shape == (2, 4 * 14 * 300) and s.start.shape == (14 * 90 * 160 + 1,)
-    assert s.temp.numel() > 0
-    b, q, c, h, w = 2, 900, 24, 11, 17
+@pytest.mark.parametrize("c,dtype,shift,body", [
+    (16, torch.bfloat16, 0, (4, 4)), (16, torch.float32, 0, (4, 4)), (16, torch.bfloat16, 1, (32, 1)),
+    (16, torch.float32, 1, (32, 1)), (8, torch.bfloat16, 0, (4, 4)), (12, torch.float32, 0, (4, 4)),
+    (4, torch.float32, 1, (4, 1)), (5, torch.float32, 0, (32, 1)), (40, torch.float32, 0, (32, 4)),
+    (64, torch.bfloat16, 0, (32, 4)), (128, torch.bfloat16, 0, (32, 4)), (128, torch.float32, 1, (32, 1)),
+    (300, torch.bfloat16, 0, (32, 4)),
+])
+def test_warp_bwd_body_on_card(c, dtype, shift, body, rng, cuda_device):
+    """B3's C entry picks the walk's body, (lanes a cell, channels a lane),
+    from C and g's alignment: 4 channels a lane when C % 4 == 0 and g is
+    aligned (``shift`` elements into its storage breaks that); the narrow
+    body (4 lanes a cell, 32 cells a warp) when 4 lanes cover C, as at
+    gather's C = 16, else the wide one (32 lanes a cell). The kernel then
+    agrees with the plain version there."""
+    b, q, h, w = 2, 700, 9, 13
+    g = torch.from_numpy(rng.standard_normal(b * q * c + shift).astype(np.float32)).to(cuda_device, dtype)
+    g = g[shift:].view(b, q, c)
+    out = torch.empty((b, h, w, c), dtype=dtype, device=cuda_device)
+    assert warp_ops.body(g, out) == body
     sx = torch.from_numpy(rng.uniform(-2.0, w + 1.0, (b, q)).astype(np.float32)).to(cuda_device)
     sy = torch.from_numpy(rng.uniform(-2.0, h + 1.0, (b, q)).astype(np.float32)).to(cuda_device)
+    warp_case(f"body-C{c}-{dtype}-shift{shift}", g, sx, sy, h, w)
+
+
+def test_warp_bwd_scratch_on_card(rng, cuda_device):
+    """The wrapper's scratch: one key a sample, 14-bit keys at the
+    flagship's 90 x 160 maps (a 91 x 161 base grid), a start per (base
+    cell, map) bin and CUB's temporary bytes; after a launch the keys are
+    sorted and end at most at the sentinel, the last start counts the
+    samples with a tap inside, and the output is the wrapper's."""
+    lib = warp_ops.load_library()
+    s = warp_ops.alloc_scratch(lib, 14, 300, 90, 160, cuda_device)
+    assert s.end_bit == 14 and s.keys.shape == (2, 14 * 300) and s.rec.shape == (2, 14 * 300, 2)
+    assert s.start.shape == (14 * 91 * 161 + 1,) and s.temp.numel() > 0
+    b, q, c, h, w = 2, 900, 24, 11, 17
+    sx = torch.from_numpy(rng.uniform(-3.0, w + 2.0, (b, q)).astype(np.float32)).to(cuda_device)
+    sy = torch.from_numpy(rng.uniform(-3.0, h + 2.0, (b, q)).astype(np.float32)).to(cuda_device)
     g = torch.from_numpy(rng.standard_normal((b, q, c)).astype(np.float32)).to(cuda_device, torch.bfloat16)
     out = torch.empty((b, h, w, c), dtype=g.dtype, device=cuda_device)
     scratch = warp_ops.alloc_scratch(lib, b, q, h, w, cuda_device)
     warp_ops.launch(lib, g, sx, sy, out, scratch)
     torch.cuda.synchronize()
     assert torch.equal(out, warp_bwd(g, sx, sy, h, w))
-    keys = scratch.keys[1]
-    assert bool((keys[1:] >= keys[:-1]).all()) and int(keys[-1]) <= b * h * w
-    assert int(scratch.start[0]) == 0 and int(scratch.start[-1]) == int((keys < b * h * w).sum())
+    keys, sentinel = scratch.keys[1], (h + 1) * (w + 1)
+    inside = ((sx >= -1) & (sx < w) & (sy >= -1) & (sy < h)).sum()
+    assert bool((keys[1:] >= keys[:-1]).all()) and int(keys[-1]) <= sentinel
+    assert int(scratch.start[0]) == 0 and int(scratch.start[-1]) == int((keys < sentinel).sum()) == int(inside)
 
 
 def test_backward_through_autograd_launches_the_kernel(rng, cuda_device):

@@ -22,6 +22,7 @@ from mvdetr_tpu.ops.pallas.warp_bwd import warp_bwd_pallas
 from mvdetr_tpu.ops.sampling import bilinear_scatter_matmul as jax_scatter
 from mvdetr_tpu_torch.ops.sampling import bilinear_patch_sample, bilinear_scatter_matmul
 from mvdetr_tpu_torch.ops.warp import (
+    alloc_scratch,
     check_sizes,
     perspective_warp,
     sort_end_bit,
@@ -108,23 +109,64 @@ def test_dispatch_on_cpu_and_kernel_wrapper_refuses_cpu_tensors(rng):
     assert warp_bwd.launches == before
 
 
-@pytest.mark.parametrize("num_cells,bits", [(1, 1), (2, 2), (3, 2), (1023, 10), (1024, 11), (1025, 11),
-                                            (201600, 18), (2**31 - 2, 31)])
-def test_sort_end_bit_covers_the_sentinel(num_cells, bits):
-    """B3 sorts keys 0 .. B*H*W, the last the sentinel of a tap outside, over
-    the fewest bits that hold them: 18 at the flagship (14 x 90 x 160); at
-    B*H*W = 1024 the sentinel takes the top bit of 11."""
-    assert sort_end_bit(num_cells) == bits
-    assert num_cells >> bits == 0 and (bits == 1 or num_cells >> (bits - 1) == 1)
+@pytest.mark.parametrize("h,w,bits", [(1, 1, 3), (1, 2, 3), (2, 2, 4), (31, 31, 11), (31, 32, 11), (30, 32, 10),
+                                       (90, 160, 14), (60, 180, 14), (120, 360, 16), (2**15, 2**15, 31)])
+def test_sort_end_bit_covers_the_sentinel(h, w, bits):
+    """B3 sorts one key a sample, its base cell on the per-map (h+1) x (w+1)
+    grid, ``0 .. (h+1)*(w+1) - 1``, the last key the sentinel of a sample
+    whose taps all fall outside, over the fewest bits that hold them: 14 at
+    the flagship (90 x 160) and gather mode (60 x 180), 16 at aio's and
+    deform_conv's 120 x 360; at a 32 x 32 grid the sentinel 1024 takes the
+    top bit of 11."""
+    sentinel = (h + 1) * (w + 1)
+    assert sort_end_bit(h, w) == bits
+    assert sentinel >> bits == 0 and sentinel >> (bits - 1) == 1
 
 
 def test_check_sizes_refuses_what_overflows_the_kernels_int32_indices():
+    """Samples B*Q, cells B*h*w and bins B*(h+1)*(w+1) in int32; h and w
+    exact in f32."""
     check_sizes(14, 43200, 90, 160)  # the flagship
-    check_sizes(1, (2**31 - 2) // 4, 1, 1)
+    check_sizes(112, 302400, 60, 180)  # gather mode
+    check_sizes(1, 2**31 - 2, 1, 1)
     with pytest.raises(ValueError, match="2\\^31"):
-        check_sizes(1, (2**31 - 1 + 3) // 4, 1, 1)  # 4*B*Q entries
+        check_sizes(1, 2**31 - 1, 1, 1)  # B*Q samples
     with pytest.raises(ValueError, match="2\\^31"):
         check_sizes(2, 1, 2**15, 2**15)  # B*h*w cells
+    with pytest.raises(ValueError, match="2\\^31"):
+        check_sizes(1, 1, 46340, 46340)  # B*h*w = 2147395600 fits, B*(h+1)*(w+1) does not
+    with pytest.raises(ValueError, match="2\\^24"):
+        check_sizes(1, 1, 1, 2**24)
+
+
+class _FakeSortLibrary:
+    """Stands in for the built library's ``warp_bwd_temp_bytes``: records
+    what the sort is sized for and answers a fixed byte count."""
+
+    def __init__(self):
+        self.asked = []
+
+    def warp_bwd_temp_bytes(self, n, end_bit, nbytes):
+        self.asked.append((n, end_bit))
+        nbytes._obj.value = 4096 + n
+        return 0
+
+
+@pytest.mark.parametrize("b,q,h,w,bits", [(112, 302400, 60, 180, 14), (14, 43200, 90, 160, 14),
+                                          (14, 388800, 120, 360, 16), (3, 1500, 7, 9, 7)])
+def test_alloc_scratch_sizes_one_key_a_sample(b, q, h, w, bits):
+    """B3's scratch at gather's, the flagship's, deform_conv's and the edges
+    stress case's shapes (on the meta device: nothing is allocated): keys
+    and indices for B*Q samples, not 4*B*Q entries, each sample's (wx1, wy1),
+    a start per (base cell, map) bin and one more, and the sort sized for B*Q
+    keys of ``sort_end_bit(h, w)`` bits."""
+    lib = _FakeSortLibrary()
+    s = alloc_scratch(lib, b, q, h, w, "meta")
+    n = b * q
+    assert s.keys.shape == (2, n) and s.order.shape == (2, n) and s.rec.shape == (2, n, 2)
+    assert s.keys.dtype == s.order.dtype == s.start.dtype == torch.int32 and s.rec.dtype == torch.float32
+    assert s.start.shape == (b * (h + 1) * (w + 1) + 1,)
+    assert s.end_bit == bits == sort_end_bit(h, w) and lib.asked == [(n, bits)] and s.temp.numel() == 4096 + n
 
 
 @pytest.mark.parametrize("name", WARP_STRESS_NAMES)
@@ -134,8 +176,10 @@ def test_plain_matches_jax_at_the_b3_stress_cases(name):
     cell of 3000 entries per tap (exact: bitwise equal), segments of 1-97
     entries, every tap outside (zeros), NaN / +-1e6 coordinates (NaN taken
     as a far-out coordinate, as the kernel takes it), C = 5, 40 in f32 and
-    300 in bf16, B*H*W = 1024, a g that starts 2 bytes into its storage.
-    Tolerances as in the tests above."""
+    300 in bf16, B*H*W = 1024, a g that starts 2 bytes into its storage;
+    gather mode's shape in small (C = 16, ~130 entries a cell over 4 maps,
+    exact), bases on the grid's edges across maps (exact), C = 8, and C = 16
+    two bytes into its storage. Tolerances as in the tests above."""
     case = warp_stress_cases(np.random.default_rng(0), device="cpu")[name]
     g, h, w = case["g"], case["h"], case["w"]
     sx, sy = case["ref_xy"] or (case["sx"], case["sy"])
