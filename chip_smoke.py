@@ -106,7 +106,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rig frames at img_reduce=12), 120x360 BEV, 60x180 encoder grid, shadow
    transformer at n_points=4 and radius 4, bf16 compute, batch 2; one
    warm-up and three timed requests through ``eval_step``, which must launch
-   B1 3 times each; a profile of one request;
+   B1 3 times each; the NMS fixed point's passes (``distance_nms.passes``,
+   one host sync each) printed beside the launches, 1 to 513 a request;
+   a profile of one request;
 8. training at the same width (the configuration ``bench.py`` times: 20
    people per frame set, top-100 targets, lr 5e-4 over 100 steps, encoder
    dropout 0.1): one warm-up and five timed ``train_step`` calls on one
@@ -1770,9 +1772,10 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     import torch
 
     from mvdetr_tpu_torch.models import MVDeTr
+    from mvdetr_tpu_torch.ops import distance_nms
     from mvdetr_tpu_torch.train import eval_step
 
-    batch_size = 2
+    batch_size, num_candidates = 2, 512
     kw, mode, per_request, _ = FULL_WIDTH[config]
     label = "serve" + FULL_WIDTH_LABELS[config]
     wrappers = main_path_launches()
@@ -1788,10 +1791,11 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
+    passes_before = distance_nms.passes
     latencies = []
     for _ in range(1 + n_timed):
         t0 = time.perf_counter()
-        aux, xys, keep = eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0)
+        aux, xys, keep = eval_step(model, batch, world_reduce=4, num_candidates=num_candidates, nms_dist=20.0)
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
         check(tuple(xys.shape) == (batch_size, 512, 3) and tuple(keep.shape) == (batch_size, 512),
@@ -1801,6 +1805,10 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     expected = {name: k * (1 + n_timed) for name, k in zip(wrappers, per_request)}
     check(launches == expected, f"{label}: launches {launches} in {1 + n_timed} requests, expected {expected}")
+    # one NMS call a request: at least one pass, at most one more than its candidates
+    passes = distance_nms.passes - passes_before
+    check(1 + n_timed <= passes <= (num_candidates + 1) * (1 + n_timed),
+          f"{label}: {passes} NMS passes in {1 + n_timed} requests")
     timed = latencies[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1810,11 +1818,11 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     clip = f", offset_clip_fraction {float(aux['offset_clip_fraction']):.4f}" if "offset_clip_fraction" in aux else ""
     check(("offset_clip_fraction" in aux) == (mode in CLAMPED_MODES), f"{label}: offset_clip_fraction in "
           f"{sorted(aux)}")
-    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches} in "
-          f"{1 + n_timed} requests")
-    profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=512, nms_dist=20.0),
+    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches}, "
+          f"NMS passes {passes} (one host sync each) in {1 + n_timed} requests")
+    profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=num_candidates, nms_dist=20.0),
                   med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), **GATHER_LABEL})
-    return launches, {"median_ms": med, "peak_gib": peak}
+    return launches, {"median_ms": med, "peak_gib": peak, "nms_passes": passes}
 
 
 def train_full_width(rig, batch, config="flagship", n_timed=5):
@@ -2876,7 +2884,8 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         probe.uninstall()
     print("full-width medians and peaks (bf16, batch 2; " + torch.cuda.get_device_name(0) + "): " + "; ".join(
-        f"{config}: request {st['request']['median_ms']:.3f} ms ({st['request']['peak_gib']:.2f} GiB), step "
+        f"{config}: request {st['request']['median_ms']:.3f} ms ({st['request']['peak_gib']:.2f} GiB, "
+        f"{st['request']['nms_passes']} NMS passes), step "
         f"{st['step']['median_ms']:.3f} ms ({st['step']['peak_gib']:.2f} GiB)" for config, st in variant_stats.items()))
     cli_launches = {k: recipe_launches[k] + wildtrack["launches"][k] for k in recipe_launches}
     shadow_by_path = {name: {"serve": shadow_serve_launches[name], "train": shadow_train_launches[name],

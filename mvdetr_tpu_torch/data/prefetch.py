@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from mvdetr_tpu_torch.device import resolve_device
+from mvdetr_tpu_torch.utils.profiling import span
 
 
 def _tensors(item):
@@ -73,9 +74,10 @@ def prefetch_to_device(iterator: Iterator[dict], device="cuda", size: int = 2) -
         try:
             with torch.cuda.device(dev), torch.cuda.stream(stream):
                 for item in iterator:
-                    staged = upload(item, dev)
-                    ready = torch.cuda.Event()
-                    ready.record(stream)
+                    with span("mvdetr:feed.stage"):
+                        staged = upload(item, dev)
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
                     while not stop.is_set():
                         try:
                             q.put((staged, ready), timeout=0.1)
@@ -96,7 +98,8 @@ def prefetch_to_device(iterator: Iterator[dict], device="cuda", size: int = 2) -
     try:
         consumer = torch.cuda.current_stream(dev)
         while True:
-            got = q.get()
+            with span("mvdetr:feed.wait"):
+                got = q.get()
             if got is sentinel:
                 break
             staged, ready = got

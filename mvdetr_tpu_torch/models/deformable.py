@@ -53,6 +53,7 @@ from mvdetr_tpu_torch.ops.msda_warped import ms_deform_attn_warped, shadow_coord
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 from mvdetr_tpu_torch.parallel.collectives import gather_cams
 from mvdetr_tpu_torch.parallel.mesh import view_shards
+from mvdetr_tpu_torch.utils.profiling import span
 
 _MODES = ("windowed", "warped", "gather")
 _logged = set()
@@ -212,36 +213,37 @@ class MSDeformAttn(nn.Module):
         :meth:`project_value` of every level's tokens) replaces that gather,
         as :meth:`~mvdetr_tpu_torch.models.world_feat.modules.DeformTransWorldFeat.compose_view_shards`
         passes it."""
-        if self.mode == "gather":
-            return self._gather(query, input_flatten, spatial_shape), None
-        m, l, p = self.n_heads, self.n_levels, self.n_points
-        d = self.d_model // m
-        b, q, _ = query.shape
-        h, w = spatial_shape
-        if q % (h * w) != 0 or input_flatten.shape[1] % (h * w) != 0:
-            raise ValueError(f"{self.mode} mode needs level-major tokens on aligned same-shape grids")
-        if self.mode == "warped" and (h, w) != self.spatial_shape:
-            raise ValueError(f"warped mode: grid {h}x{w}, the reference map's is {self.spatial_shape}")
-        c = q // (h * w)
-        if value is None:
-            value = gather_cams(self.project_value(input_flatten, spatial_shape), self.view_group, dim=1)
-        if value.shape != (b, l, h, w, m, d):
-            raise ValueError(f"{self.mode} mode: a value of {tuple(value.shape)} for {l} levels of {h}x{w}")
-        offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2).float()
-        # softmax over (levels, points) in f32, then the value dtype (`deformable.py:170-171`)
-        weights = F.softmax(self.attention_weights(query).reshape(b, q, m, l * p).float(), dim=-1)
-        weights = weights.to(value.dtype)
-        clip = offset_clip_fraction(offsets, self.radius)
-        offsets = offsets.reshape(b, c, h, w, m, l, p, 2)
-        weights = weights.reshape(b, c, h, w, m, l, p)
-        if self.mode == "warped":
-            out = ms_deform_attn_warped(value, self.shadow_xy, offsets, weights, radius=self.radius)
-        elif self._bev_shards(h) > 1:
-            out = bev_row_sharded_windowed_attention(value, offsets, weights, self.mesh, radius=self.radius)
-            out = out.reshape(b, c * h * w, m * d)
-        else:
-            out = windowed_attention(value, offsets, weights, radius=self.radius)
-        return self.output_proj(out), clip
+        with span("mvdetr:attention"):
+            if self.mode == "gather":
+                return self._gather(query, input_flatten, spatial_shape), None
+            m, l, p = self.n_heads, self.n_levels, self.n_points
+            d = self.d_model // m
+            b, q, _ = query.shape
+            h, w = spatial_shape
+            if q % (h * w) != 0 or input_flatten.shape[1] % (h * w) != 0:
+                raise ValueError(f"{self.mode} mode needs level-major tokens on aligned same-shape grids")
+            if self.mode == "warped" and (h, w) != self.spatial_shape:
+                raise ValueError(f"warped mode: grid {h}x{w}, the reference map's is {self.spatial_shape}")
+            c = q // (h * w)
+            if value is None:
+                value = gather_cams(self.project_value(input_flatten, spatial_shape), self.view_group, dim=1)
+            if value.shape != (b, l, h, w, m, d):
+                raise ValueError(f"{self.mode} mode: a value of {tuple(value.shape)} for {l} levels of {h}x{w}")
+            offsets = self.sampling_offsets(query).reshape(b, q, m, l, p, 2).float()
+            # softmax over (levels, points) in f32, then the value dtype (`deformable.py:170-171`)
+            weights = F.softmax(self.attention_weights(query).reshape(b, q, m, l * p).float(), dim=-1)
+            weights = weights.to(value.dtype)
+            clip = offset_clip_fraction(offsets, self.radius)
+            offsets = offsets.reshape(b, c, h, w, m, l, p, 2)
+            weights = weights.reshape(b, c, h, w, m, l, p)
+            if self.mode == "warped":
+                out = ms_deform_attn_warped(value, self.shadow_xy, offsets, weights, radius=self.radius)
+            elif self._bev_shards(h) > 1:
+                out = bev_row_sharded_windowed_attention(value, offsets, weights, self.mesh, radius=self.radius)
+                out = out.reshape(b, c * h * w, m * d)
+            else:
+                out = windowed_attention(value, offsets, weights, radius=self.radius)
+            return self.output_proj(out), clip
 
     def _gather(self, query, input_flatten, spatial_shape):
         m, l, p = self.n_heads, self.n_levels, self.n_points

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mvdetr_tpu_torch.parallel.collectives import all_reduce_sum, group_size
+from mvdetr_tpu_torch.utils.profiling import span
 
 
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
@@ -147,21 +148,22 @@ class BatchNorm2d(nn.Module):
         self.data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        if self.training:
-            mean = x32.mean(dim=(0, 2, 3))
-            square = (x32 * x32).mean(dim=(0, 2, 3))
-            if self.data_group is not None:
-                means = all_reduce_sum(torch.stack([mean, square]), self.data_group) / group_size(self.data_group)
-                mean, square = means[0], means[1]
-            var = torch.clamp(square - mean * mean, min=0.0)
-            if not self.freeze_stats:
-                self._update_running_stats(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(self.dtype)
+        with span("mvdetr:norm"):
+            x32 = x.float()
+            if self.training:
+                mean = x32.mean(dim=(0, 2, 3))
+                square = (x32 * x32).mean(dim=(0, 2, 3))
+                if self.data_group is not None:
+                    means = all_reduce_sum(torch.stack([mean, square]), self.data_group) / group_size(self.data_group)
+                    mean, square = means[0], means[1]
+                var = torch.clamp(square - mean * mean, min=0.0)
+                if not self.freeze_stats:
+                    self._update_running_stats(mean, var)
+            else:
+                mean, var = self.running_mean, self.running_var
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+            return y.to(self.dtype)
 
     @torch.no_grad()
     def _update_running_stats(self, mean, var):
@@ -277,8 +279,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(self.dtype)
+        with span("mvdetr:norm"):
+            x32 = x.float()
+            mean = x32.mean(-1, keepdim=True)
+            var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+            y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+            return y.to(self.dtype)

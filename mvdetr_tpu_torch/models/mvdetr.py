@@ -74,6 +74,7 @@ from mvdetr_tpu_torch.models.world_feat import build_world_feat
 from mvdetr_tpu_torch.ops.warp import invert_3x3, perspective_warp
 from mvdetr_tpu_torch.parallel.collectives import gather_cams
 from mvdetr_tpu_torch.parallel.mesh import DATA_VIEW, view_shards
+from mvdetr_tpu_torch.utils.profiling import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -241,7 +242,9 @@ class MVDeTr(nn.Module):
         b, n, h, w, _ = imgs.shape
         if n != self.local_cams:
             raise ValueError(f"expected {self.local_cams} cameras, got {n}")
-        feat = self.base(self.trunk_input(imgs))
+        x = self.trunk_input(imgs)
+        with span("mvdetr:trunk"):
+            feat = self.base(x)
         if self.bottleneck is not None:
             # Dropout2d on [B, N, C, H, W]: its mask is drawn per (frame, camera, channel) of the global batch
             feat = self.bottleneck_dropout(self.bottleneck(feat).unflatten(0, (b, n))).flatten(0, 1)
@@ -249,8 +252,9 @@ class MVDeTr(nn.Module):
         imgs_offset = self.img_offset(feat)
         imgs_wh = self.img_wh(feat)
 
-        full_proj = self.warp_mats(affine_mats.to(feat.device), feat.shape[2:4])
-        world_in = perspective_warp(feat.permute(0, 2, 3, 1), full_proj, self.Rworld_shape)
+        with span("mvdetr:warp"):
+            full_proj = self.warp_mats(affine_mats.to(feat.device), feat.shape[2:4])
+            world_in = perspective_warp(feat.permute(0, 2, 3, 1), full_proj, self.Rworld_shape)
         world_in = world_in.reshape(b, n, self.Rworld_shape[0], self.Rworld_shape[1], -1)
         if self.view_shards > 1 and not getattr(self.world_feat, "shards_views", False):
             world_in = gather_cams(world_in, self.view_group, dim=1)

@@ -14,7 +14,9 @@ iterated from ``keep = valid``: every pass is one batched ``[K, K]``
 reduction, and after ``t`` passes every candidate whose chain of possible
 suppressors is shorter than ``t`` is final. The fixed point is unique (each
 ``keep[j]`` depends only on earlier candidates), so the loop stops at the
-first pass that changes nothing, after at most K + 1 passes.
+first pass that changes nothing, after at most K + 1 passes. Each pass
+ends in one host sync (the comparison with the previous mask);
+``distance_nms.passes`` counts the passes of every call.
 """
 
 from __future__ import annotations
@@ -47,9 +49,13 @@ def distance_nms(
 
     keep = val
     for _ in range(k + 1):
+        distance_nms.passes += 1
         suppressed = (hit & keep[..., :, None]).any(dim=-2)
         new = val & ~suppressed
         if torch.equal(new, keep):
             break
         keep = new
     return torch.zeros_like(keep).scatter(-1, order, keep)
+
+
+distance_nms.passes = 0

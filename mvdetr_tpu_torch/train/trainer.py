@@ -46,7 +46,7 @@ from mvdetr_tpu_torch.parallel.mesh import DATA_VIEW
 from mvdetr_tpu_torch.parallel.multihost import process_batch_slice
 from mvdetr_tpu_torch.parallel.sharding import replicate_state, shard_cams
 from mvdetr_tpu_torch.train.optim import schedule_step
-from mvdetr_tpu_torch.utils.profiling import device_trace
+from mvdetr_tpu_torch.utils.profiling import device_trace, span
 from mvdetr_tpu_torch.utils.visualize import (
     STAGE_FIGURES, capture_attention, inference_outputs, matplotlib_pyplot, save_forward_stage_figures,
     shadow_backprojected, to_numpy,
@@ -59,7 +59,8 @@ def batch_to_device(batch: dict, device) -> dict:
     def put(x):
         return {k: put(v) for k, v in x.items()} if isinstance(x, dict) else torch.as_tensor(x, device=device)
 
-    return {k: put(v) for k, v in batch.items()}
+    with span("mvdetr:upload"):
+        return {k: put(v) for k, v in batch.items()}
 
 
 def supervised_loss(outputs, batch: dict, alpha: float = 1.0, use_mse: bool = False, group=None, cam_group=None,
@@ -187,30 +188,35 @@ def train_step(state, batch: dict, generator: torch.Generator, alpha: float = 1.
     parameter's applied gradient is the one-process step's.
     """
     model = state.model
-    model_dev = _model_device(model, device)
-    batch = batch_to_device(batch, model_dev)
-    axes = loss_axes(model, mesh)
-    was_training = model.training
-    model.train()
-    set_dropout_generator(model, generator)
-    try:
-        state.optimizer.zero_grad(set_to_none=True)
-        outputs, clips = model(batch["imgs"], batch["affine_mats"])
-        loss, aux = supervised_loss(outputs, batch, alpha, use_mse, **axes)
-        loss.backward()
-        reduce_gradients(model, axes.get("cam_group"))
-        state.optimizer.step()
-        schedule_step(state.scheduler)
-        state.step += 1
-    finally:
-        set_dropout_generator(model, None)
-        model.train(was_training)
-    aux = {k: v.detach() for k, v in aux.items()}
-    if clips:
-        aux["offset_clip_fraction"] = torch.stack(clips).mean().detach()
-    if mesh is not None:
-        aux = global_aux(aux, axes["group"], axes["cam_group"])
-        check_replicated(model, mesh.world_group)
+    with span("mvdetr:train_step"):
+        model_dev = _model_device(model, device)
+        batch = batch_to_device(batch, model_dev)
+        axes = loss_axes(model, mesh)
+        was_training = model.training
+        model.train()
+        set_dropout_generator(model, generator)
+        try:
+            with span("mvdetr:train.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with span("mvdetr:train.forward"):
+                outputs, clips = model(batch["imgs"], batch["affine_mats"])
+                loss, aux = supervised_loss(outputs, batch, alpha, use_mse, **axes)
+            with span("mvdetr:train.backward"):
+                loss.backward()
+                reduce_gradients(model, axes.get("cam_group"))
+            with span("mvdetr:train.optimizer"):
+                state.optimizer.step()
+                schedule_step(state.scheduler)
+            state.step += 1
+        finally:
+            set_dropout_generator(model, None)
+            model.train(was_training)
+        aux = {k: v.detach() for k, v in aux.items()}
+        if clips:
+            aux["offset_clip_fraction"] = torch.stack(clips).mean().detach()
+        if mesh is not None:
+            aux = global_aux(aux, axes["group"], axes["cam_group"])
+            check_replicated(model, mesh.world_group)
     return state, aux
 
 
@@ -218,12 +224,14 @@ def decode_detections(world_heatmap: torch.Tensor, world_offset: torch.Tensor, w
                       num_candidates: int = 512, nms_dist: float = 20.0):
     """BEV head outputs (NHWC logits) -> ``(xys [B, K, 3], keep [B, K])``;
     rows are (x, y, score) in full-resolution grid units."""
-    score = torch.sigmoid(world_heatmap)
-    xys = mvdet_decode(score, world_offset, reduce=world_reduce)  # [B, HW, 3]
-    k = min(num_candidates, xys.shape[1])
-    top_scores, top_idx = top_k(xys[:, :, 2], k)
-    top_xy = torch.take_along_dim(xys[:, :, :2], top_idx[..., None], dim=1)
-    keep = distance_nms(top_xy, top_scores, nms_dist)
+    with span("mvdetr:decode"):
+        score = torch.sigmoid(world_heatmap)
+        xys = mvdet_decode(score, world_offset, reduce=world_reduce)  # [B, HW, 3]
+        k = min(num_candidates, xys.shape[1])
+        top_scores, top_idx = top_k(xys[:, :, 2], k)
+        top_xy = torch.take_along_dim(xys[:, :, :2], top_idx[..., None], dim=1)
+    with span("mvdetr:nms"):
+        keep = distance_nms(top_xy, top_scores, nms_dist)
     return torch.cat([top_xy, top_scores[..., None]], dim=-1), keep
 
 
@@ -246,28 +254,29 @@ def eval_step(model, batch: dict, world_reduce: int = 4, num_candidates: int = 5
     every rank returns the same outputs (the BEV heads run replicated over
     ``view`` and ``bev``).
     """
-    model_dev = _model_device(model, device)
-    batch = batch_to_device(batch, model_dev)
-    was_training = model.training
-    model.eval()
-    try:
-        outputs, clips = model(batch["imgs"], batch["affine_mats"])
-    finally:
-        model.train(was_training)
-    axes = loss_axes(model, mesh)
-    data_group = axes.get("group")
-    aux = {}
-    if "world_gt" in batch and "imgs_gt" in batch:
-        aux = supervised_loss(outputs, batch, alpha, use_mse, **axes)[1]
-    if clips:
-        aux["offset_clip_fraction"] = torch.stack(clips).mean()
-    (world_heatmap, world_offset), _ = outputs
-    xys, keep = decode_detections(world_heatmap, world_offset, world_reduce, num_candidates, nms_dist)
-    if mesh is not None:
-        aux = global_aux(aux, data_group, axes["cam_group"])
-    if data_group is not None:
-        xys = torch.cat(all_gather_list(xys, data_group))
-        keep = torch.cat(all_gather_list(keep.to(torch.uint8), data_group)).bool()  # gloo gathers no bool
+    with span("mvdetr:eval_step"):
+        model_dev = _model_device(model, device)
+        batch = batch_to_device(batch, model_dev)
+        was_training = model.training
+        model.eval()
+        try:
+            outputs, clips = model(batch["imgs"], batch["affine_mats"])
+        finally:
+            model.train(was_training)
+        axes = loss_axes(model, mesh)
+        data_group = axes.get("group")
+        aux = {}
+        if "world_gt" in batch and "imgs_gt" in batch:
+            aux = supervised_loss(outputs, batch, alpha, use_mse, **axes)[1]
+        if clips:
+            aux["offset_clip_fraction"] = torch.stack(clips).mean()
+        (world_heatmap, world_offset), _ = outputs
+        xys, keep = decode_detections(world_heatmap, world_offset, world_reduce, num_candidates, nms_dist)
+        if mesh is not None:
+            aux = global_aux(aux, data_group, axes["cam_group"])
+        if data_group is not None:
+            xys = torch.cat(all_gather_list(xys, data_group))
+            keep = torch.cat(all_gather_list(keep.to(torch.uint8), data_group)).bool()  # gloo gathers no bool
     return aux, xys, keep
 
 

@@ -1,4 +1,4 @@
 from mvdetr_tpu_torch.utils.logger import AverageMeter, Logger
-from mvdetr_tpu_torch.utils.profiling import StepTimer, device_trace
+from mvdetr_tpu_torch.utils.profiling import device_trace, span
 
-__all__ = ["AverageMeter", "Logger", "StepTimer", "device_trace"]
+__all__ = ["AverageMeter", "Logger", "device_trace", "span"]

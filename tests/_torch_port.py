@@ -1,6 +1,8 @@
 """Shared helpers of the ``tests/test_torch_port_*.py`` files: the card
 fixture, and seeded inputs that go through the JAX package and the port."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -54,3 +56,21 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(saved)
+
+
+def spans_of(trace_path) -> dict:
+    """``{name: [(tid, start, end)]}`` of a Chrome trace's ``mvdetr:*``
+    annotations, by name without the prefix."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e["name"].startswith("mvdetr:"):
+            out.setdefault(e["name"][len("mvdetr:"):], []).append((e["tid"], e["ts"], e["ts"] + e["dur"]))
+    return out
+
+
+def inside(inner, outers) -> bool:
+    """Whether the span ``inner`` lies within one of ``outers`` on its thread."""
+    tid, a, b = inner
+    return any(t == tid and s <= a and b <= e for t, s, e in outers)

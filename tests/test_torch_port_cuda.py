@@ -24,7 +24,7 @@ from mvdetr_tpu_torch.ops.sampling import bilinear_scatter_matmul
 from mvdetr_tpu_torch.ops import warp as warp_ops
 from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
-from _torch_port import VALUE_PLANES, cuda_device, synthetic_train_batch, windowed_inputs  # noqa: F401
+from _torch_port import VALUE_PLANES, cuda_device, spans_of, synthetic_train_batch, windowed_inputs  # noqa: F401
 from chip_smoke import (
     LANE_STRESS_CASES, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu,
     gather_inputs, gather_run, gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
@@ -520,6 +520,30 @@ def test_prefetch_uploads_ahead_and_reraises_on_card(cuda_device):
     for g, item in zip(got, items):
         assert g["imgs"] == float(item["imgs"].astype(np.float64).sum()) and isinstance(g["frame"], np.ndarray)
         np.testing.assert_array_equal(g["heatmap"], item["world_gt"]["heatmap"])
+
+
+def test_feed_spans_pair_each_staged_batch_with_its_wait_on_card(cuda_device, tmp_path):
+    """Under ``device_trace`` (the CLI's ``--profile``, every thread
+    recorded) the producer thread's ``mvdetr:feed.stage`` and the
+    consumer's ``mvdetr:feed.wait`` show on their own threads; batch k's
+    wait, the k-th on the consumer's thread, ends after batch k's staging,
+    the k-th on the producer's, has ended (the queue is first in, first out)."""
+    from mvdetr_tpu_torch.data import prefetch_to_device
+    from mvdetr_tpu_torch.utils.profiling import device_trace
+
+    rng = np.random.default_rng(0)
+    items = [{"imgs": rng.integers(0, 256, (2, 3, 64, 96, 3), dtype=np.uint8)} for _ in range(6)]
+    with device_trace(str(tmp_path)):
+        feed = prefetch_to_device(iter(items), cuda_device, size=2)
+        got = [next(feed)["imgs"].double().sum().item() for _ in range(4)]
+        feed.close()
+    assert got == [float(item["imgs"].astype(np.float64).sum()) for item in items[:4]]
+    spans = spans_of(tmp_path / "trace.json")
+    stages, waits = sorted(spans["feed.stage"], key=lambda s: s[1]), sorted(spans["feed.wait"], key=lambda s: s[1])
+    assert len(waits) == 4 and 4 <= len(stages) <= len(items)
+    assert len({s[0] for s in stages}) == len({w[0] for w in waits}) == 1 and stages[0][0] != waits[0][0]
+    for k, (stage, wait) in enumerate(zip(stages, waits)):
+        assert stage[2] <= wait[2], k
 
 
 def test_trainer_epoch_and_test_on_card(cuda_device, tmp_path):

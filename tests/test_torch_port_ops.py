@@ -138,3 +138,20 @@ def test_nms_matches_jax_on_random_and_chained_candidates(seed):
         ours = nms.distance_nms(torch.from_numpy(pts), torch.from_numpy(sc), 20.0,
                                 None if v is None else torch.from_numpy(v))
         np.testing.assert_array_equal(ours.numpy(), _jax_keep(pts, sc, 20.0, v))
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 8])
+def test_nms_counts_one_pass_and_one_sync_per_link_of_a_chain(k, monkeypatch):
+    """A chain of k candidates 15 apart with falling scores, each within 20
+    of the next only: the fixed point settles one more link a pass, so the
+    loop takes k passes, the last of which changes nothing, and each ends
+    in one host sync (``torch.equal``). ``distance_nms.passes`` grows by k."""
+    syncs = []
+    real = torch.equal
+    monkeypatch.setattr(torch, "equal", lambda a, b: syncs.append(1) or real(a, b))
+    pts = torch.stack([torch.arange(k) * 15.0, torch.zeros(k)], -1)[None]
+    sc = torch.linspace(1.0, 0.5, k)[None]
+    before = nms.distance_nms.passes
+    keep = nms.distance_nms(pts, sc, 20.0)
+    assert nms.distance_nms.passes - before == len(syncs) == k
+    np.testing.assert_array_equal(keep[0].numpy(), np.arange(k) % 2 == 0)
