@@ -249,6 +249,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+# the dilated ResNet-18's 20 BatchNorms at the cells' 720x1280 frames, in forward order: (C, H, W) of each input,
+# 94.0 M elements a camera
+TRUNK_NORM_SHAPES = ([(64, 360, 640)] + [(64, 180, 320)] * 4 + [(128, 90, 160)] * 5 + [(256, 90, 160)] * 5
+                     + [(512, 90, 160)] * 5)
 KERNEL_ATOL = 5e-5  # B1: f32 sums of L*P=28 samples in another order; outputs |x| < ~5
 BWD_ATOL = 1e-4  # B2: f32 sums of up to a few hundred terms in another order, of scale max(1, max|ref|)
 WARP_RTOL = 2.0**-6  # B3 in bf16: the final rounding may land one bf16 step (2^-8..2^-7 of the value) apart
@@ -1486,6 +1490,183 @@ def deform_conv_phase(rng) -> dict:
     return rec
 
 
+NORM_EPS = 1e-5
+# BatchNorm kernels against the plain version on the card, as the largest gap over the largest |plain| of each
+# output, by the output's dtype: the training statistics are f32 sums of up to 3.2 M elements a channel taken in
+# another order (the kernels add their slabs in f64), and dx, dweight and dbias sum the same products in another
+# order, so f32 outputs move by a few f32 ulps of their scale (1e-4 leaves 10-100x room); a bf16 output rounds
+# two such f32 values once each, and a value on a rounding boundary lands one bf16 step (2^-8 to 2^-7 of it) apart.
+# The running statistics are f32 in both dtypes. In f32 training dx's gap is also taken over the largest of the
+# terms that carry the batch statistics alone, dx - dy * mul ("dx_stats"), so a term lost or scaled shows at any n.
+NORM_GAP = {"float32": 1e-4, "bfloat16": 2.0**-7}
+
+
+def norm_inputs(c, h, w, n, dtype, channels_last, seed):
+    """x ``[n, c, h, w]`` with its own mean (-1..1) and scale (0.5..2) a
+    channel; dy with a part of its own a channel, ``randn + u1 + u2 * z``
+    (z = x standardised in its channel, u1 and u2 of size 0.5..1.5 and
+    either sign), so that ``sum(dy)`` and ``sum(dy * (x - mean))`` are of
+    the order of n and the terms of dx that carry the batch statistics are
+    as large as dx itself at every n (an independent dy leaves them
+    ~1/sqrt(n) of it); and f32 weights and running statistics; on the card,
+    from ``seed``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g, device="cuda")
+
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    z = torch.randn(n, c, h, w, generator=g, device="cuda")
+    x = z * uniform(0.5, 2.0, 1, c, 1, 1) + uniform(-1, 1, 1, c, 1, 1)
+
+    def signed(*shape):
+        return uniform(0.5, 1.5, *shape) * torch.where(torch.rand(*shape, generator=g, device="cuda") < 0.5, -1.0, 1.0)
+
+    dy = torch.randn(n, c, h, w, generator=g, device="cuda") + signed(1, c, 1, 1) + signed(1, c, 1, 1) * z
+    vectors = {"weight": uniform(0.5, 1.5, c), "bias": uniform(-0.5, 0.5, c), "running_mean": uniform(-0.5, 0.5, c),
+               "running_var": uniform(0.5, 2.0, c)}
+    return x.to(dtype).contiguous(memory_format=fmt), dy.to(dtype).contiguous(memory_format=fmt), vectors
+
+
+def norm_case(c, h, w, n, dtype, channels_last, training, seed=0) -> dict:
+    """One BatchNorm call and its backward through the kernels (as the
+    module calls them) twice and through the plain version once, on the
+    same inputs: raises unless the two kernel runs are bitwise equal;
+    returns each output's gap from the plain one (largest difference over
+    the largest |plain|), and in f32 training ``dx_stats``: dx's largest
+    difference over the largest |plain dx - dy * mul|, the part of dx that
+    the batch statistics carry (mul from the plain version's statistics,
+    in f64)."""
+    import torch
+
+    from mvdetr_tpu_torch.ops import batch_norm as bn
+
+    x, dy, v = norm_inputs(c, h, w, n, dtype, channels_last, seed)
+
+    def run(fn):
+        xx = x.clone().requires_grad_()
+        weight, bias = v["weight"].clone().requires_grad_(), v["bias"].clone().requires_grad_()
+        run_mean, run_var, count = v["running_mean"].clone(), v["running_var"].clone(), torch.zeros(
+            (), dtype=torch.long, device="cuda")
+        y = fn(xx, weight, bias, run_mean, run_var, count, training, True, NORM_EPS, dtype)
+        y.backward(dy)
+        return {"y": y.detach(), "dx": xx.grad, "dweight": weight.grad, "dbias": bias.grad, "running_mean": run_mean,
+                "running_var": run_var, "count": count}
+
+    launches = (bn.batch_norm.launches, bn.batch_norm_bwd.launches)
+    ours, again = run(bn.batch_norm_2d), run(bn.batch_norm_2d)
+    check((bn.batch_norm.launches - launches[0], bn.batch_norm_bwd.launches - launches[1]) == (2, 2),
+          "batch_norm: the kernels ran other than once a call")
+    ref = run(bn.batch_norm_plain)
+    torch.cuda.synchronize()
+    label = f"batch_norm {n}x{c}x{h}x{w} {str(dtype)[6:]} {'channels-last' if channels_last else 'NCHW'} " \
+            f"{'train' if training else 'eval'}"
+    for k in ours:
+        check(torch.equal(ours[k], again[k]), f"{label}: two calls differ in {k}")
+    check(ours["y"].dtype == dtype and ours["dx"].dtype == dtype, f"{label}: dtypes {ours['y'].dtype}, "
+          f"{ours['dx'].dtype}")
+    check(int(ours["count"]) == int(ref["count"]) == int(training), f"{label}: count {int(ours['count'])}")
+    gaps = {k: float((ours[k].float() - ref[k].float()).abs().max() / ref[k].float().abs().max())
+            for k in ours if k != "count"}
+    if training and dtype == torch.float32:
+        x64 = x.double()
+        mean, second = x64.mean(dim=(0, 2, 3)), (x64 * x64).mean(dim=(0, 2, 3))
+        mul = v["weight"].double() / torch.sqrt(torch.clamp(second - mean * mean, min=0.0) + NORM_EPS)
+        stats_part = ref["dx"].double() - dy.double() * mul[:, None, None]
+        gaps["dx_stats"] = float((ours["dx"].double() - ref["dx"].double()).abs().max() / stats_part.abs().max())
+    return gaps
+
+
+def norm_gap_ok(gaps: dict, dtype) -> bool:
+    """Every gap of :func:`norm_case` within ``NORM_GAP``: y and dx by their
+    dtype, the f32 parameter gradients, running statistics and
+    ``dx_stats`` by f32's."""
+    limit = NORM_GAP[str(dtype)[6:]]
+    return all(g <= (limit if k in ("y", "dx") else NORM_GAP["float32"]) for k, g in gaps.items())
+
+
+def batch_norm_phase() -> dict:
+    """The trunk's 20 BatchNorms (``TRUNK_NORM_SHAPES``) of a training step
+    (14 cameras, forward and backward) and of a request (7, forward), bf16
+    channels-last as the trunk feeds them: each distinct shape's kernels
+    against the plain version (train and eval, ``norm_case``, gaps within
+    ``NORM_GAP``, bitwise repeats; training also in f32, where ``dx_stats``
+    holds the terms of dx that the batch statistics carry), then the times
+    summed over the 20:
+    kernel (the wrappers' calls; the training forward and backward also
+    apart), bound (16 bytes an element a training call, 4 an eval call, at
+    3.35 TB/s), plain (``batch_norm_plain``, with autograd's backward in
+    training) and library (``F.batch_norm``, cuDNN's, a yardstick the port
+    never calls)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mvdetr_tpu_torch.ops import batch_norm as bn
+
+    bf16 = torch.bfloat16
+    gaps = {}
+    for c, h, w in sorted(set(TRUNK_NORM_SHAPES)):
+        for training, n, dtype in ((True, 14, bf16), (False, 7, bf16), (True, 14, torch.float32)):
+            key = f"{c}x{h}x{w} {'train' if training else 'eval'}{'' if dtype == bf16 else ' f32'}"
+            gaps[key] = norm_case(c, h, w, n, dtype, True, training)
+            print(f"batch_norm {key}: gaps from the plain version " + ", ".join(
+                f"{k} {v:.3g}" for k, v in gaps[key].items()))
+            check(norm_gap_ok(gaps[key], dtype), f"batch_norm {key}: gaps {gaps[key]} beyond {NORM_GAP}")
+            torch.cuda.empty_cache()
+    totals = {kind: dict.fromkeys(("kernel_ms", "bound_ms", "plain_ms", "library_ms"), 0.0)
+              for kind in ("train", "eval")}
+    totals["train"].update(fwd_ms=0.0, bwd_ms=0.0)
+    by_shape = {}
+    for (c, h, w) in sorted(set(TRUNK_NORM_SHAPES)):
+        count = TRUNK_NORM_SHAPES.count((c, h, w))
+        for kind, n in (("train", 14), ("eval", 7)):
+            training = kind == "train"
+            x, dy, v = norm_inputs(c, h, w, n, bf16, True, seed=1)
+            run_mean, run_var = v["running_mean"].clone(), v["running_var"].clone()
+            num = torch.zeros((), dtype=torch.long, device="cuda")
+            weight, bias = v["weight"].clone().requires_grad_(), v["bias"].clone().requires_grad_()
+
+            def fwd():
+                return bn.batch_norm(x, v["weight"], v["bias"], run_mean, run_var, num, training=training,
+                                     update_stats=training, eps=NORM_EPS, dtype=bf16)
+
+            def reference(fn):
+                def call():
+                    weight.grad = bias.grad = None
+                    xx = x.detach().requires_grad_(training)
+                    with torch.set_grad_enabled(training):
+                        y = fn(xx)
+                        if training:
+                            y.backward(dy)
+                return call
+
+            rec = {"fwd_ms": cuda_ms(fwd, 10)}
+            if training:
+                stats = fwd()[1]
+                rec["bwd_ms"] = cuda_ms(lambda: bn.batch_norm_bwd(x, dy, stats, v["weight"], eps=NORM_EPS,
+                                                                  training=True), 10)
+            rec["kernel_ms"] = rec["fwd_ms"] + rec.get("bwd_ms", 0.0)
+            rec["plain_ms"] = cuda_ms(reference(lambda xx: bn.batch_norm_plain(
+                xx, weight, bias, run_mean, run_var, num, training, training, NORM_EPS, bf16)), 10)
+            rec["library_ms"] = cuda_ms(reference(lambda xx: F.batch_norm(
+                xx, run_mean, run_var, weight, bias, training=training, momentum=0.1, eps=NORM_EPS)), 10)
+            rec["bound_ms"] = (16 if training else 4) * x.numel() / HBM_BYTES_PER_S * 1e3
+            by_shape[f"{c}x{h}x{w} {kind}"] = dict(rec, calls=count)
+            for k in totals[kind]:
+                totals[kind][k] += rec[k] * count
+            print(f"batch_norm {n}x{c}x{h}x{w} {kind} (x{count}): "
+                  + ", ".join(f"{k} {t:.3f}" for k, t in rec.items()))
+            del x, dy
+            torch.cuda.empty_cache()
+    for kind, t in totals.items():
+        what = "training step (14 cameras, forward and backward)" if kind == "train" else "request (7 cameras, forward)"
+        print(f"batch_norm, the 20 BatchNorms of a {what}, bf16 channels-last ({torch.cuda.get_device_name(0)}): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+    return {"gaps": gaps, "by_shape": by_shape, **totals}
+
+
 def variants_card_vs_cpu() -> None:
     """Each ported variant at a small size, the card against the CPU from the
     same weights in f32 (TF32 off): the inference forward within
@@ -1765,6 +1946,34 @@ def profile_table(label, fn, wall_ms, names):
     return ours
 
 
+NORM_KERNELS = ("bn_sums_", "bn_finalize_", "bn_apply_", "bn_dx_")  # csrc/batch_norm.cu's kernels
+
+
+def norm_calls() -> tuple:
+    """The BatchNorm wrappers' counts: forward and backward calls."""
+    from mvdetr_tpu_torch.ops import batch_norm as bn
+
+    return bn.batch_norm.launches, bn.batch_norm_bwd.launches
+
+
+def check_norm_calls(label, model, before: tuple, units: int, train: bool) -> dict:
+    """Raise unless every BatchNorm of ``model`` went through the kernels
+    once a forward in each of ``units`` steps or requests (and its backward
+    once a step; a rematerialised block's again in the backward's rerun);
+    returns the counts."""
+    from mvdetr_tpu_torch.models.layers import BatchNorm2d
+    from mvdetr_tpu_torch.models.resnet import BasicBlock
+
+    norms = sum(isinstance(m, BatchNorm2d) for m in model.modules())
+    reruns = sum(isinstance(m, BatchNorm2d) for b in model.modules() if isinstance(b, BasicBlock) and b.remat
+                 for m in b.modules()) if train else 0
+    calls = {"forward": norm_calls()[0] - before[0], "backward": norm_calls()[1] - before[1]}
+    expected = {"forward": (norms + reruns) * units, "backward": norms * units if train else 0}
+    print(f"{label}: {norms} BatchNorms, kernel calls {calls} in {units} {'steps' if train else 'requests'}")
+    check(calls == expected, f"{label}: BatchNorm kernel calls {calls}, expected {expected}")
+    return calls
+
+
 def serve_full_width(rig, config="flagship", n_timed=3):
     """Serve 1 + ``n_timed`` requests of a ``FULL_WIDTH`` configuration;
     every request must launch B1/B2/B3 as the table says. Returns the
@@ -1791,6 +2000,7 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
+    norms = norm_calls()
     passes_before = distance_nms.passes
     latencies = []
     for _ in range(1 + n_timed):
@@ -1805,6 +2015,7 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     expected = {name: k * (1 + n_timed) for name, k in zip(wrappers, per_request)}
     check(launches == expected, f"{label}: launches {launches} in {1 + n_timed} requests, expected {expected}")
+    norms = check_norm_calls(label, model, norms, 1 + n_timed, train=False)
     # one NMS call a request: at least one pass, at most one more than its candidates
     passes = distance_nms.passes - passes_before
     check(1 + n_timed <= passes <= (num_candidates + 1) * (1 + n_timed),
@@ -1821,8 +2032,9 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches}, "
           f"NMS passes {passes} (one host sync each) in {1 + n_timed} requests")
     profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=num_candidates, nms_dist=20.0),
-                  med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), **GATHER_LABEL})
-    return launches, {"median_ms": med, "peak_gib": peak, "nms_passes": passes}
+                  med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "batch_norm": NORM_KERNELS,
+                        **GATHER_LABEL})
+    return launches, {"median_ms": med, "peak_gib": peak, "nms_passes": passes, "batch_norm_calls": norms}
 
 
 def train_full_width(rig, batch, config="flagship", n_timed=5):
@@ -1853,6 +2065,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     torch.cuda.reset_peak_memory_stats()
     for fn in wrappers.values():
         fn.launches = 0
+    norms = norm_calls()
     times, losses = [], []
     for _ in range(1 + n_timed):
         t0 = time.perf_counter()
@@ -1865,6 +2078,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     steps = 1 + n_timed
     expected = {name: k * steps for name, k in zip(wrappers, per_step)}
     check(launches == expected, f"{label}: launches {launches} in {steps} steps, expected {expected}")
+    norms = check_norm_calls(label, model, norms, steps, train=True)
     timed = times[1:]
     med = float(np.median(timed))
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1878,7 +2092,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     ours = profile_table(label, lambda: train_step(state, batch, gen), med,
                          {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "msda_windowed_bwd": ("msda_bwd_",),
                           "warp_bwd": ("warp_bwd",),  # B3's four stages, CUB's sort kernels among them
-                          **GATHER_LABEL})
+                          "batch_norm": NORM_KERNELS, **GATHER_LABEL})
 
     # two steps from the same state and generator, with PyTorch's default
     # algorithms (must be bitwise equal) and with deterministic ones (reported)
@@ -1914,7 +2128,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
               f"order {grads_differ[::-1][:6]}; step {a[3]:.1f} and {b[3]:.1f} ms; warnings {a[4] + b[4]}")
     check(verdict["default algorithms"], f"{label}: two steps with PyTorch's default algorithms are not bitwise "
           "equal")
-    return launches, ours, {"median_ms": med, "peak_gib": peak}
+    return launches, ours, {"median_ms": med, "peak_gib": peak, "batch_norm_calls": norms}
 
 
 def bench_twin_phase() -> dict:
@@ -2752,14 +2966,15 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from mvdetr_tpu_torch import native
-    from mvdetr_tpu_torch.ops import kernel_build, lane_broadcast, msda_windowed, warp
+    from mvdetr_tpu_torch.ops import batch_norm, kernel_build, lane_broadcast, msda_windowed, warp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    names = (msda_windowed.KERNEL_NAME, msda_windowed.BWD_KERNEL_NAME, warp.KERNEL_NAME, lane_broadcast.KERNEL_NAME)
+    names = (msda_windowed.KERNEL_NAME, msda_windowed.BWD_KERNEL_NAME, warp.KERNEL_NAME, lane_broadcast.KERNEL_NAME,
+             batch_norm.KERNEL_NAME)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(kernel_build.build, names))
@@ -2767,6 +2982,7 @@ def main(argv: list[str] | None = None) -> int:
     msda_windowed.load_bwd_library()
     warp.load_library()
     lane_broadcast.load_library()
+    batch_norm.load_library()
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.1f} s (in parallel)")
     t0 = time.perf_counter()
     native.load_library()  # the data path's host library (g++), built at first use as the kernels are
@@ -2822,6 +3038,7 @@ def main(argv: list[str] | None = None) -> int:
     gather = gather_kernel_phase(rng)
     deform = deform_conv_phase(rng)
     b5 = lane_phase(args.lane_parent)
+    norm = batch_norm_phase()
 
     small_model_card_vs_cpu()
     variants_card_vs_cpu()
@@ -3019,6 +3236,19 @@ def main(argv: list[str] | None = None) -> int:
         f"at_T{tile}": {k: rec[tile][k]
                         for k in ("ms", "ms_1rep", "us_per_added_rep", "plain_ms", "bound_ms", "parent_ms")},
     } for variant, rec in ((v, r["by_T"]) for v, r in b5.items())]
+    # the BatchNorm kernels (no TPU kernel: XLA's fusions of flax's BatchNorm): the 20 of a training step and of a
+    # request, calls by path (the full-width runs; one a BatchNorm a forward, one a backward)
+    rows.append({
+        "name": batch_norm.KERNEL_NAME, "route": "cuda", "source": f"mvdetr_tpu_torch/csrc/{batch_norm.KERNEL_NAME}.cu",
+        "replaces": None, "launches": sum(sum(st["batch_norm_calls"].values()) for kind in variant_stats.values()
+                                          for st in kind.values()),
+        "launches_by_path": {f"{config}:{kind}": st["batch_norm_calls"] for config, kinds in variant_stats.items()
+                             for kind, st in kinds.items()},
+        "max_abs_err": max(max(g.values()) for g in norm["gaps"].values()), "ms": norm["train"]["kernel_ms"],
+        "plain_ms": norm["train"]["plain_ms"], "bound_ms": norm["train"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": norm["train"]["library_ms"], "fwd_ms": norm["train"]["fwd_ms"], "bwd_ms": norm["train"]["bwd_ms"],
+        "eval": norm["eval"], "by_shape": norm["by_shape"],
+    })
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

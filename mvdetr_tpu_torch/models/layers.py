@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mvdetr_tpu_torch.parallel.collectives import all_reduce_sum, group_size
+from mvdetr_tpu_torch.ops.batch_norm import batch_norm_2d, update_running_stats
 from mvdetr_tpu_torch.utils.profiling import span
 
 
@@ -134,6 +134,10 @@ class BatchNorm2d(nn.Module):
     and divided by its size: the global batch's means, since every rank
     holds as many frames. The variance then follows the same formula. A
     group of one rank gives the ungrouped statistics' bits.
+
+    On a CUDA tensor the hand-written kernels compute it (forward and
+    backward, ``ops/batch_norm.py``, ``csrc/batch_norm.cu``); on any other
+    the plain PyTorch version (:func:`~mvdetr_tpu_torch.ops.batch_norm.batch_norm_plain`).
     """
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
@@ -149,27 +153,12 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("mvdetr:norm"):
-            x32 = x.float()
-            if self.training:
-                mean = x32.mean(dim=(0, 2, 3))
-                square = (x32 * x32).mean(dim=(0, 2, 3))
-                if self.data_group is not None:
-                    means = all_reduce_sum(torch.stack([mean, square]), self.data_group) / group_size(self.data_group)
-                    mean, square = means[0], means[1]
-                var = torch.clamp(square - mean * mean, min=0.0)
-                if not self.freeze_stats:
-                    self._update_running_stats(mean, var)
-            else:
-                mean, var = self.running_mean, self.running_var
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (x32 - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-            return y.to(self.dtype)
+            return batch_norm_2d(x, self.weight, self.bias, self.running_mean, self.running_var,
+                                 self.num_batches_tracked, self.training, not self.freeze_stats, self.eps, self.dtype,
+                                 self.data_group)
 
-    @torch.no_grad()
     def _update_running_stats(self, mean, var):
-        self.running_mean.mul_(0.9).add_(0.1 * mean)
-        self.running_var.mul_(0.9).add_(0.1 * var)
-        self.num_batches_tracked.add_(1)
+        update_running_stats(self.running_mean, self.running_var, self.num_batches_tracked, mean, var)
 
 
 @contextlib.contextmanager

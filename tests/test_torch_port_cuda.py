@@ -26,8 +26,9 @@ from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import VALUE_PLANES, cuda_device, spans_of, synthetic_train_batch, windowed_inputs  # noqa: F401
 from chip_smoke import (
-    LANE_STRESS_CASES, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, WARP_STRESS_NAMES, bwd_case, fwd_case, gather_card_vs_cpu,
-    gather_inputs, gather_run, gather_vs_windowed, gather_warp_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
+    LANE_STRESS_CASES, NORM_EPS, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, TRUNK_NORM_SHAPES, WARP_STRESS_NAMES,
+    bwd_case, free_port, fwd_case, gather_card_vs_cpu, gather_inputs, gather_run, gather_vs_windowed,
+    gather_warp_inputs, norm_case, norm_gap_ok, norm_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -664,3 +665,79 @@ def test_row_halo_kernels_on_card(radius, m, d, hw, rng, cuda_device):
     assert torch.equal(halo[1], padded[1]) and torch.equal(halo[2], padded[2])
     if h % 3 == 0 and h // 3 >= radius:
         assert torch.equal(compose_bev_shards(inner, o, w, 3, radius), msda_windowed_fwd(inner, o, w, radius))
+
+
+# BatchNorm: every one of the trunk's 20 shapes at a training step's 14 cameras and a request's 7
+NORM_CASES = [pytest.param(i, c, h, w, id=f"bn{i}-{c}x{h}x{w}") for i, (c, h, w) in enumerate(TRUNK_NORM_SHAPES)]
+
+
+@pytest.mark.parametrize("channels_last", [True, False], ids=["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("i,c,h,w", NORM_CASES)
+def test_batch_norm_kernels_match_plain_on_card(i, c, h, w, dtype, channels_last, cuda_device):
+    """The BatchNorm kernels against the plain version at each trunk shape,
+    train (14 cameras) and eval (7), an NCHW input made channels-last first:
+    y, dx, dweight, dbias and the running statistics within ``NORM_GAP``
+    (chip_smoke.py: the statistics' f32 sums in another order, and one bf16
+    step where a value lies on a rounding boundary), and in f32 training
+    dx's gap over the part of dx that the batch statistics carry
+    (``dx_stats``; dy has a part of its own a channel, so that part is as
+    large as dx); two calls give the same bits (``norm_case``)."""
+    for training, n in ((True, 14), (False, 7)):
+        gaps = norm_case(c, h, w, n, dtype, channels_last, training, seed=i)
+        assert norm_gap_ok(gaps, dtype), (training, gaps)
+    torch.cuda.empty_cache()
+
+
+def test_batch_norm_one_rank_nccl_group_gives_ungrouped_bits_on_card(cuda_device):
+    """With a one-rank NCCL group the kernels' all-reduces of the forward's
+    means and the backward's sums change no bit: y, dx, dweight, dbias and
+    the running statistics equal the ungrouped call's (as ``nccl_phase``
+    holds the whole step)."""
+    import torch.distributed as dist
+
+    from mvdetr_tpu_torch.ops import batch_norm as bn
+
+    x, dy, v = norm_inputs(64, 90, 160, 4, torch.bfloat16, True, seed=5)
+
+    def run(group):
+        xx = x.clone().requires_grad_()
+        weight, bias = v["weight"].clone().requires_grad_(), v["bias"].clone().requires_grad_()
+        stats = [v["running_mean"].clone(), v["running_var"].clone(), torch.zeros((), dtype=torch.long,
+                                                                                   device="cuda")]
+        y = bn.batch_norm_2d(xx, weight, bias, *stats, True, True, NORM_EPS, torch.bfloat16, group)
+        y.backward(dy)
+        return [y, xx.grad, weight.grad, bias.grad, *stats]
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    try:
+        grouped = run(dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(grouped, run(None)):
+        assert torch.equal(a, b)
+
+
+def test_train_and_eval_steps_call_the_batch_norm_kernels_on_card(cuda_device, monkeypatch):
+    """A bf16 train step calls the BatchNorm kernels' forward and backward
+    once for each of the trunk's 20 BatchNorms, an eval step the forward 20
+    times; the plain version never runs on the card."""
+    from mvdetr_tpu_torch.models.layers import BatchNorm2d
+    from mvdetr_tpu_torch.ops import batch_norm as bn
+
+    def refuse(*_args, **_kwargs):
+        raise AssertionError("the plain BatchNorm ran on the card")
+
+    monkeypatch.setattr(bn, "batch_norm_plain", refuse)
+    rig = make_synthetic_rig(**RIG)
+    model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, compute_dtype=torch.bfloat16, device="cuda")
+    assert sum(isinstance(m, BatchNorm2d) for m in model.modules()) == 20
+    state = create_train_state(model, lr=5e-4, total_steps=10)
+    batch = synthetic_train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=0)
+    before = (bn.batch_norm.launches, bn.batch_norm_bwd.launches)
+    train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    assert (bn.batch_norm.launches - before[0], bn.batch_norm_bwd.launches - before[1]) == (20, 20)
+    before = (bn.batch_norm.launches, bn.batch_norm_bwd.launches)
+    eval_step(model, {k: batch[k] for k in ("imgs", "affine_mats")}, world_reduce=2, num_candidates=64)
+    assert (bn.batch_norm.launches - before[0], bn.batch_norm_bwd.launches - before[1]) == (20, 0)

@@ -55,7 +55,7 @@ def test_package_and_chip_smoke_import_no_jax():
                  "data.prefetch", "utils.logger", "utils.profiling", "train.checkpoint", "data.png", "data.trees",
                  "scripts.hard_benchmark", "scripts.stress_ab", "scripts.tune_convergence",
                  "scripts.rehearse_realscale", "scripts.full_scale_run", "scripts.rehearse_day_one", "scripts.bench",
-                 "ops.kernel_flops", "scripts.lane_vs_source"):
+                 "ops.kernel_flops", "scripts.lane_vs_source", "ops.batch_norm"):
         assert f"mvdetr_tpu_torch.{name}" in report["imported"], name
 
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -96,12 +96,13 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 
 def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp_path):
     """No nvcc, or an nvcc that fails: building (and so the first launch of
-    each of B1, B2, B3 and B5) raises; nothing substitutes the plain version."""
-    from mvdetr_tpu_torch.ops import kernel_build, lane_broadcast, msda_windowed, warp
+    each of B1, B2, B3, B5 and the BatchNorm kernels) raises; nothing
+    substitutes the plain version."""
+    from mvdetr_tpu_torch.ops import batch_norm, kernel_build, lane_broadcast, msda_windowed, warp
 
     loaders = {msda_windowed.KERNEL_NAME: msda_windowed.load_library,
                msda_windowed.BWD_KERNEL_NAME: msda_windowed.load_bwd_library, warp.KERNEL_NAME: warp.load_library,
-               lane_broadcast.KERNEL_NAME: lane_broadcast.load_library}
+               lane_broadcast.KERNEL_NAME: lane_broadcast.load_library, batch_norm.KERNEL_NAME: batch_norm.load_library}
     monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernel_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -126,11 +127,12 @@ def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp
             load.cache_clear()
 
 
-@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd", "lane_broadcast"])
+@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd", "lane_broadcast", "batch_norm"])
 def test_backward_kernels_use_no_atomics(name):
-    """B1, the backward kernels and B5 sum each output in one fixed order, so
-    two launches, and two train steps, repeat bitwise: outside comments, their
-    sources name no atomic operation (CUDA's atomic*() or PTX atom/red)."""
+    """B1, the backward kernels, B5 and the BatchNorm kernels sum each
+    output in one fixed order, so two launches, and two train steps, repeat
+    bitwise: outside comments, their sources name no atomic operation
+    (CUDA's atomic*() or PTX atom/red)."""
     code = re.sub(r"//[^\n]*", "", (PACKAGE / "csrc" / f"{name}.cu").read_text())
     assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)
 
