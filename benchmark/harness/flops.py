@@ -1,6 +1,6 @@
 """The work a step or a request does, counted on the frozen reference: its
-convolutions and products by ``FlopCounterMode`` over the reference model
-on the meta device, plus the attention's sampling by the mode's frozen
+convolutions and products by ``FlopCounterMode`` over the configuration's
+reference model (:mod:`benchmark.harness.reference`) on the meta device, plus the attention's sampling by the mode's frozen
 formula (the counter sees no gathers). The count is the same whatever the
 program runs the work with."""
 
@@ -12,8 +12,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from benchmark.formulas import attention, warp_bwd
+from benchmark.harness import reference
 from benchmark.harness.inputs import input_hw
-from benchmark.reference.model import MVDeTr
 from benchmark.reference.train import loss_terms
 
 
@@ -40,7 +40,7 @@ def meta_batch(cfg: dict, batch: int) -> dict:
 def count_flops(cfg: dict, rig: dict, batch: int, train: bool) -> int:
     """FLOPs of one train step (forward, loss, backward) or one request
     (forward) at ``batch`` frame sets."""
-    model = MVDeTr(cfg, rig).to("meta")
+    model = reference.of(cfg).MVDeTr(cfg, rig).to("meta")
     with torch.device("meta"):
         data = meta_batch(cfg, batch)
         model.train(train)
@@ -58,18 +58,16 @@ def count_flops(cfg: dict, rig: dict, batch: int, train: bool) -> int:
 def b3_least_seconds(cfg: dict, batch: int) -> float:
     """Least time of a train step's B3 calls: the camera warp's backward
     (bf16 cotangents of every BEV cell of every view onto the feature maps)
-    and, in gather mode, each encoder layer's value gradient (each sample's
-    weighted cotangent onto its head and level's map)."""
+    and the attention mode's own calls, where its formula file has a
+    ``b3_calls(cfg, batch)`` (``(cotangent, output, samples)`` entries of each
+    call, as :mod:`benchmark.formulas.warp_bwd` counts them)."""
     from benchmark.formulas.peaks import least_seconds
 
     n, c = cfg["num_cam"], cfg["bottleneck_dim"]
     hw, ww = (s // cfg["world_reduce"] for s in cfg["worldgrid_shape"])
     fh, fw = (-(-s // cfg["img_reduce"]) for s in cfg["img_shape"])
     calls = [(batch * n * hw * ww * c, batch * n * fh * fw * c, batch * n * hw * ww)]
-    if cfg["attn_mode"] == "gather":
-        sh = attention.shape_of(cfg, batch)
-        maps = batch * sh["m"] * sh["l"]
-        hs, ws = ((s - 1) // 2 + 1 for s in (hw, ww))
-        per = maps * sh["q"] * sh["p"]
-        calls += [(per * sh["d"], maps * hs * ws * sh["d"], per)] * sh["layers"]
+    mode_calls = getattr(attention_formula(cfg), "b3_calls", None)
+    if mode_calls is not None:
+        calls += mode_calls(cfg, batch)
     return sum(least_seconds(warp_bwd.nbytes(g, o, s, 2), 0.0, warp_bwd.flops(g)) for g, o, s in calls)

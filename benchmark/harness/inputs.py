@@ -16,8 +16,8 @@ import math
 import numpy as np
 import torch
 
+from benchmark.harness import reference
 from benchmark.reference import geometry
-from benchmark.reference.model import MVDeTr, radial_offset_bias
 from benchmark.reference.targets import build_targets
 
 HEATMAP_BIAS = -2.19
@@ -46,11 +46,13 @@ def input_hw(cfg: dict) -> tuple:
 def make_weights(cfg: dict, rig: dict, seed: int, device) -> dict:
     """Every entry of the model's state dict, f32 on ``device``: LeCun-normal
     kernels (N(0, 1/fan_in)), zero biases, ones and zeros for the norms and
-    running statistics, heatmap biases -2.19, the radial offset bias,
+    running statistics, heatmap biases -2.19, the reference's offset bias,
     level embeddings N(0, 1) and the offset and attention-weight kernels
-    N(0, scale^2); one normal draw on the device for all of them."""
+    N(0, scale^2); one normal draw on the device for all of them. The
+    names and shapes are those of the configuration's reference model."""
+    ref = reference.of(cfg)
     with torch.device("meta"):
-        skeleton = MVDeTr(cfg, rig)
+        skeleton = ref.MVDeTr(cfg, rig)
     shapes = {k: tuple(v.shape) for k, v in skeleton.state_dict().items()}
     scale = cfg["assumed"]["weights"]["attention_scale"]
     random = [k for k in shapes if k.endswith("weight") and len(shapes[k]) >= 2 or k.endswith("lvl_embedding")]
@@ -67,8 +69,7 @@ def make_weights(cfg: dict, rig: dict, seed: int, device) -> dict:
         else:
             std = 1.0 / math.sqrt(math.prod(shape[1:]))
         out[k] = (z * std).reshape(shape)
-    radius = cfg["attn_radius"] if cfg["attn_mode"] == "windowed" else None
-    offsets_bias = torch.from_numpy(radial_offset_bias(cfg["nhead"], cfg["num_cam"], cfg["n_points"], radius))
+    offsets_bias = torch.as_tensor(ref.offset_bias(cfg))
     for k, shape in shapes.items():
         if k in out:
             continue
@@ -202,9 +203,8 @@ def calibrate_running_stats(cfg: dict, rig: dict, weights: dict, frames: np.ndar
     that the reference's trunk takes over the calibration ``frames`` (one
     f32 forward), as a trained model's would be: a serving model normalises
     with them."""
-    from benchmark.reference.model import warp_coords
-
-    model = MVDeTr(cfg, rig).to(device)
+    ref = reference.of(cfg)
+    model = ref.MVDeTr(cfg, rig).to(device)
     model.load_state_dict(weights, strict=True)
     model.train()
     for m in model.modules():
@@ -212,7 +212,7 @@ def calibrate_running_stats(cfg: dict, rig: dict, weights: dict, frames: np.ndar
             m.calibrate = True
     eye = np.tile(np.eye(3, dtype=np.float32), (frames.shape[0], cfg["num_cam"], 1, 1))
     with torch.no_grad():
-        model(torch.from_numpy(frames).to(device), warp_coords(cfg, rig, eye).to(device))
+        model(torch.from_numpy(frames).to(device), ref.warp_coords(cfg, rig, eye).to(device))
     for k, v in model.state_dict().items():
         if k.endswith(("running_mean", "running_var")):
             weights[k] = v.detach().clone()

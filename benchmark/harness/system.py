@@ -11,7 +11,9 @@ import torch
 
 KERNEL_COUNTERS = (("B1", "mvdetr_tpu_torch.ops.msda_windowed", "msda_windowed_fwd"),
                    ("B2", "mvdetr_tpu_torch.ops.msda_windowed", "msda_windowed_bwd"),
-                   ("B3", "mvdetr_tpu_torch.ops.warp", "warp_bwd"))
+                   ("B3", "mvdetr_tpu_torch.ops.warp", "warp_bwd"),
+                   ("BN", "mvdetr_tpu_torch.ops.batch_norm", "batch_norm"),
+                   ("BN_bwd", "mvdetr_tpu_torch.ops.batch_norm", "batch_norm_bwd"))
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -69,7 +71,8 @@ def eval_step(model, batch: dict, cfg: dict, device):
 
 
 def kernel_launches() -> dict:
-    """The program's launch counters of its hand-written kernels (B1, B2, B3)."""
+    """The program's launch counters of its hand-written kernels (B1, B2, B3,
+    and the BatchNorm forward and backward): one a call."""
     import importlib
 
     return {name: getattr(getattr(importlib.import_module(mod), fn), "launches", 0)

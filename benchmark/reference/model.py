@@ -397,3 +397,10 @@ def radial_offset_bias(n_heads: int, n_levels: int, n_points: int, max_radius=No
     if max_radius is not None and n_points > max_radius:
         grid *= max_radius / n_points
     return grid.reshape(-1).astype(np.float32)
+
+
+def offset_bias(cfg: dict) -> np.ndarray:
+    """The ``sampling_offsets`` bias of the benchmark's initialisation: the
+    radial bias, its rings within ``attn_radius`` in windowed mode."""
+    radius = cfg["attn_radius"] if cfg["attn_mode"] == "windowed" else None
+    return radial_offset_bias(cfg["nhead"], cfg["num_cam"], cfg["n_points"], radius)

@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.model import MVDeTr, warp_coords
-
 
 def focal_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     p = torch.clamp(torch.sigmoid(logits), 1e-4, 1.0 - 1e-4)
@@ -72,12 +70,14 @@ def device_batch(batch: dict, device) -> dict:
 
 
 class Trainer:
-    """The reference's training run: ``step(batch, generator)`` is one
-    forward in training mode, the loss, backward, Adam and OneCycle."""
+    """The reference's training run on ``ref``, the configuration's
+    reference module (``MVDeTr``, ``warp_coords``): ``step(batch,
+    generator)`` is one forward in training mode, the loss, backward, Adam
+    and OneCycle."""
 
-    def __init__(self, cfg: dict, rig: dict, weights: dict, total_steps: int, device, precision: str = "f32"):
-        self.cfg, self.rig, self.device = cfg, rig, device
-        self.model = MVDeTr(cfg, rig, precision).to(device)
+    def __init__(self, ref, cfg: dict, rig: dict, weights: dict, total_steps: int, device, precision: str = "f32"):
+        self.ref, self.cfg, self.rig, self.device = ref, cfg, rig, device
+        self.model = self.ref.MVDeTr(cfg, rig, precision).to(device)
         self.model.load_state_dict(weights, strict=True)
         self.optimizer, self.scheduler = build_optimizer(self.model, cfg, total_steps)
 
@@ -85,7 +85,7 @@ class Trainer:
         model = self.model
         model.train()
         data = device_batch(batch, self.device)
-        warp = warp_coords(self.cfg, self.rig, batch["affine_mats"]).to(self.device)
+        warp = self.ref.warp_coords(self.cfg, self.rig, batch["affine_mats"]).to(self.device)
         self.optimizer.zero_grad(set_to_none=True)
         terms = loss_terms(model(data["imgs"], warp, generator), data)
         terms["loss"].backward()

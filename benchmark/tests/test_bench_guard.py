@@ -38,19 +38,26 @@ def test_a_run_loads_no_jax():
     assert not top & FORBIDDEN  # ... and nothing of JAX
 
 
+def reference_modules() -> list:
+    """Every module of ``benchmark/reference/``, the ones a configuration can name among them."""
+    return sorted(name[:-3] for name in os.listdir(os.path.join(BENCH, "reference")) if name.endswith(".py"))
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    top = loaded_after("import benchmark.reference.model, benchmark.reference.train, benchmark.reference.decode, "
-                       "benchmark.reference.targets, benchmark.reference.geometry")
+    names = reference_modules()
+    assert {"model", "train", "decode", "targets", "geometry"} <= set(names)
+    top = loaded_after("\n".join(f"import benchmark.reference.{name}" for name in names))
     assert not top & (FORBIDDEN | {"mvdetr_tpu_torch"})
 
 
 def test_the_reference_sources_import_nothing_of_the_program():
     folder = os.path.join(BENCH, "reference")
-    for name in os.listdir(folder):
-        if name.endswith(".py"):
-            with open(os.path.join(folder, name)) as f:
-                tree = ast.parse(f.read())
-            for node in ast.walk(tree):
-                mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
-                        else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
-                assert not {m.split(".")[0] for m in mods} & (FORBIDDEN | {"mvdetr_tpu_torch"}), (name, mods)
+    for name in reference_modules():
+        with open(os.path.join(folder, f"{name}.py")) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            mods = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                    else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            assert not {m.split(".")[0] for m in mods} & (FORBIDDEN | {"mvdetr_tpu_torch"}), (name, mods)
+            # the reference is the harness's lowest layer: nothing of the benchmark but its own modules
+            assert all(m.startswith("benchmark.reference") for m in mods if m.split(".")[0] == "benchmark"), (name, mods)

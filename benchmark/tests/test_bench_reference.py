@@ -42,6 +42,7 @@ def test_training_numbers_far_inside_the_limits(mode):
     numbers = readings.program_numbers(config(mode), train_traffic(), 5, CPU)
     assert numbers["loss_gap"] < 1e-4
     assert numbers["grad_gap"] < 2e-2
+    assert numbers["grad_median_gap"] < 3e-3
     assert numbers["delta_gap"] < 2e-2
 
 
@@ -69,3 +70,16 @@ def test_fp8_control_rounds():
     y = Precision("fp8")(x)
     assert 0 < float((y - x).abs().max()) <= 3 * 2.0**-3  # e5m2: 2 mantissa bits
     assert torch.equal(Precision("f32")(x), x)
+
+
+def test_grad_gap_sees_one_leaf_and_grad_median_gap_every_leaf():
+    from benchmark.harness.check import BETA1_FIRST_STEP, train_numbers
+
+    ref = {"loss": [1.0], "moment": {f"w{i}": (1.0 + i) * (1 - BETA1_FIRST_STEP) for i in range(21)},
+           "delta": {f"w{i}": 1.0 for i in range(21)}}
+    one = {**ref, "moment": {**ref["moment"], "w20": ref["moment"]["w20"] * 1.3}}  # an L1 sign flipped in one leaf
+    every = {**ref, "moment": {n: v * 1.1 for n, v in ref["moment"].items()}}  # half a batch: every leaf moves
+    assert train_numbers(one, ref)["grad_median_gap"] == 0.0
+    assert train_numbers(one, ref)["grad_gap"] == pytest.approx(0.3)  # 6.3 over the leaf's own 21
+    assert train_numbers(every, ref)["grad_median_gap"] == pytest.approx(0.1)
+    assert train_numbers(every, ref)["grad_gap"] == pytest.approx(0.1)
