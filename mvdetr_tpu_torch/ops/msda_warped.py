@@ -32,6 +32,11 @@ pseudo-levels and adds the chunks' outputs (a limit of the TPU kernel's
 VMEM). The port makes one call over all ``L*P`` pseudo-levels, so its f32
 sum runs in (l, p) order over the whole stack: the two agree to f32
 rounding, not bitwise.
+
+Under a profiler, each :func:`shadow_warp_stack` call's forward is the span
+``mvdetr:shadow_warp``, inside its layer's ``mvdetr:attention``;
+``shadow_warp_stack.calls`` counts the calls, one an encoder layer and
+forward. Its backward is B3, counted in ``warp_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 
 from mvdetr_tpu_torch.ops.msda_windowed import windowed_attention
 from mvdetr_tpu_torch.ops.warp import _PatchSampleFn
+from mvdetr_tpu_torch.utils.profiling import span
 
 
 def shadow_coords(ref_points, h: int, w: int) -> torch.Tensor:
@@ -66,16 +72,21 @@ def shadow_warp_stack(value: torch.Tensor, coords: torch.Tensor) -> torch.Tensor
 
     Differentiable with respect to ``value`` (B3 on the card, its plain
     version on the CPU); the coordinates come from calibration and get no
-    gradient."""
+    gradient. Adds one to ``shadow_warp_stack.calls`` a call."""
     b, l, h, w, m, d = value.shape
     if coords.shape[:2] != (2, l) or coords.shape[2] % (h * w):
         raise ValueError(f"shadow_warp_stack: coords {tuple(coords.shape)} do not fit value {tuple(value.shape)}")
-    p = coords.shape[2] // (h * w)
-    coords = coords.to(device=value.device, dtype=torch.float32)
-    sx = coords[0].repeat(b, 1)  # [B*L, H*W*P], contiguous as B3 takes them
-    sy = coords[1].repeat(b, 1)
-    taps = _PatchSampleFn.apply(value.reshape(b * l, h, w, m * d), sx, sy)  # [B*L, H*W*P, M*D]
-    return taps.reshape(b, l, h, w, p, m * d).permute(0, 1, 4, 2, 3, 5).reshape(b, l * p, h, w, m, d)
+    with span("mvdetr:shadow_warp"):
+        p = coords.shape[2] // (h * w)
+        coords = coords.to(device=value.device, dtype=torch.float32)
+        sx = coords[0].repeat(b, 1)  # [B*L, H*W*P], contiguous as B3 takes them
+        sy = coords[1].repeat(b, 1)
+        taps = _PatchSampleFn.apply(value.reshape(b * l, h, w, m * d), sx, sy)  # [B*L, H*W*P, M*D]
+        shadow_warp_stack.calls += 1
+        return taps.reshape(b, l, h, w, p, m * d).permute(0, 1, 4, 2, 3, 5).reshape(b, l * p, h, w, m, d)
+
+
+shadow_warp_stack.calls = 0
 
 
 def ms_deform_attn_warped(

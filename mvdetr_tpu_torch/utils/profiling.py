@@ -19,8 +19,10 @@ Adam and OneCycle steps). Serving: ``mvdetr:eval_step`` holds
 and ``mvdetr:nms``. Inside the model: ``mvdetr:trunk`` (``model.base``),
 ``mvdetr:norm`` (each ``BatchNorm2d`` and ``LayerNorm``), ``mvdetr:warp``
 (the homographies and the BEV warp) and ``mvdetr:attention`` (each
-``MSDeformAttn``). The card's feed: ``mvdetr:feed.stage`` on the producer
-thread of :func:`~mvdetr_tpu_torch.data.prefetch.prefetch_to_device` (a
+``MSDeformAttn``), which in ``warped`` mode holds ``mvdetr:shadow_warp``
+(the resample of the value at the shadow maps). The card's feed:
+``mvdetr:feed.stage`` on the producer thread of
+:func:`~mvdetr_tpu_torch.data.prefetch.prefetch_to_device` (a
 batch's pinned copies and uploads) and ``mvdetr:feed.wait`` on the
 consumer's (the wait for the next staged batch). No span opens inside a
 backward pass, but for the trunk's forward that ``--remat_backbone`` runs
