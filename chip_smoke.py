@@ -4,8 +4,8 @@
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. card name and power limit, torch and CUDA versions; build the four CUDA
-   kernels from ``mvdetr_tpu_torch/csrc`` (one ``nvcc`` each, all started
+1. card name and power limit, torch and CUDA versions; build the CUDA
+   kernels from ``mvdetr_tpu_torch/csrc`` (one ``nvcc`` a file, all started
    together; timed) and print each build log; build the data path's host
    library (``mvdetr_tpu_torch/native/dataio.cpp``, g++);
 2. B1, the windowed deformable-attention forward, against its plain PyTorch
@@ -67,7 +67,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and in f32, and at the recipe rig's in f32; every case against its plain
    version with a bitwise repeat;
 4c. gather attention (``ops/msda.py``, the ``--attn_mode gather`` and
-   ``--world_feat aio`` encoders): the card against the CPU in f32 (output
+   ``--world_feat aio`` encoders): its kernels (``csrc/msda_gather.cu``)
+   against their plain versions on the card (``gather_kernel_case``: at the
+   cells' shape, B=2 and B=1, in bf16, timed beside their bounds and the
+   plain versions' times, offsets past every edge and the radial init; in
+   f32; at aio's, the recipe's and ``GATHER_KERNEL_EDGES``' shapes in both
+   dtypes; B3's inputs bitwise, bitwise repeats); the card against the CPU in f32 (output
    and the offsets' and weights' gradients at the flagship's shape, B=2,
    L=C=7, 60x180, M=8, D=16, P=4, and at aio's, one level of 120x360; all
    three gradients at the recipe's, B=1, L=4, 15x30), and against B1/B2
@@ -122,8 +127,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    each encoder layer's shadow warp) of the ``n_points=8`` model at the same
    width, bf16, batch 2 (warped attention), with profiles of a request and a
    step and the bitwise repeat of two steps (required);
-8c. serving (1 + 3 requests, no kernel launch) and training (1 + 5 steps:
-   B3 4 times each, the camera warp's and each encoder layer's value
+8c. serving (1 + 3 requests: gather's forward kernel 3 times each, B1, B2
+   and B3 none) and training (1 + 5 steps: both gather kernels 3 times
+   each, B3 4 times, the camera warp's and each encoder layer's value
    gradient; B1 and B2 none) with ``--attn_mode gather`` at the same width,
    then the ``aio`` model (1 + 1 requests, 1 + 3 steps, the same launches);
    each with profiles of a request and a step and the bitwise repeat of two
@@ -180,7 +186,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     (d) the reference-checkpoint path (``--load_torch_ckpt``) through
     ``cli.main`` at the recipe's size, on a ``MultiviewDetector.pth`` built
     from a seeded port model with its offset biases scaled to reach 9.6
-    cells: gather mode evaluates with no kernel launch; the defaults pick
+    cells: gather mode evaluates with no launch of B1, B2 or B3; the defaults pick
     radius 11 and launch B1 3 times per eval batch with no clamp binding; a
     wrong ``--n_points`` exits with the flag to pass; both print a MODA
     line, and their BEV heatmaps agree (on the CPU within 1e-4 of scale);
@@ -214,7 +220,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
     their own (``<name>:row_halo``: one shard of 2 at the flagship shape,
     4 and 6 shards under ``by_shards``, launches from the counted
     one-process composition, path ``composed_bev_shards``),
-    error, times and bound, B1/B2/B3's times at the shadow shapes
+    error, times and bound, gather's two kernels (``msda_gather_fwd``,
+    ``msda_gather_bwd``: launches by gather and aio run, times at the
+    cells' shape at B=2 and B=1 and at the radial init), B1/B2/B3's times at the shadow shapes
     (``*_shadow``), B3's at gather's (``*_gather``, aio's under
     ``aio_gather``) and deform_conv's (``*_deform_conv``), and the gather
     layer's times; B5's rows carry the parent's time (``parent_ms``, null
@@ -1352,16 +1360,36 @@ def gather_warp_inputs(rng, shape, dtype, reach=None, device="cuda") -> dict:
 
 
 def gather_kernel_phase(rng) -> dict:
-    """(g) gather attention on the card: against the CPU (the flagship's
-    shape without the value's gradient, the recipe's with it), against
-    B1/B2 at the flagship's shape, timed forward and backward in bf16; B3
-    at the coordinates of the flagship's and aio's gather backward in bf16
-    (timed, device time by stage, the library call) and f32, against its
-    plain version with a bitwise repeat. Returns B3's record, errors under
-    ``"errs"``, and the attention's times."""
+    """(g) gather attention on the card: its kernels against their plain
+    versions (:func:`gather_kernel_case`; at the cells' shape at B=2 and
+    B=1 in bf16, timed, offsets past every edge and the radial init; in
+    f32; at aio's, the recipe's and GATHER_KERNEL_EDGES' shapes in both
+    dtypes); the path against the CPU (the flagship's shape without the
+    value's gradient, the recipe's with it), against B1/B2 at the
+    flagship's shape, timed forward and backward in bf16; B3 at the
+    coordinates of the flagship's and aio's gather backward in bf16 (timed,
+    device time by stage, the library call) and f32, against its plain
+    version with a bitwise repeat. Returns B3's record, errors under
+    ``"errs"``, the kernels' records under ``"kernels"`` and the
+    attention's times."""
     import torch
 
     from mvdetr_tpu_torch.ops.warp import warp_bwd
+
+    kernels = {"cells-b2": gather_kernel_case("cells-b2", GATHER_ATTENTION, torch.bfloat16, rng, timed=True),
+               "cells-b2-radial": gather_kernel_case("cells-b2-radial", GATHER_ATTENTION, torch.bfloat16, rng,
+                                                     reach=None, timed=True),
+               "cells-b1": gather_kernel_case("cells-b1", dict(GATHER_ATTENTION, b=1), torch.bfloat16, rng,
+                                              timed=True)}
+    torch.cuda.empty_cache()
+    kernels["cells-b2-f32"] = gather_kernel_case("cells-b2", GATHER_ATTENTION, torch.float32, rng)
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, shape in (("aio", AIO_ATTENTION), ("recipe", RECIPE_GATHER_ATTENTION), *GATHER_KERNEL_EDGES.items()):
+            for reach in (6.0, None):
+                key = f"{name}-{'radial' if reach is None else 'random'}-{str(dtype).split('.')[-1]}"
+                kernels[key] = gather_kernel_case(name, shape, dtype, rng, reach=reach)
+        torch.cuda.empty_cache()
 
     errs = [gather_card_vs_cpu("flagship", GATHER_ATTENTION, rng, value_grad=False),
             gather_card_vs_cpu("recipe", RECIPE_GATHER_ATTENTION, rng),
@@ -1370,14 +1398,14 @@ def gather_kernel_phase(rng) -> dict:
             gather_vs_windowed(rng, "flagship", GATHER_ATTENTION)]
     torch.cuda.empty_cache()
 
-    # one layer's attention at the flagship in bf16, as the model runs it: the plain gather forward, B3 backward
+    # one layer's attention at the flagship in bf16, as the model runs it: the gather kernels, B3 for the value
     value, off, wgt, ref = gather_inputs(rng, **GATHER_ATTENTION, reach=6.0)
     value = value.bfloat16()
     g = torch.from_numpy(rng.standard_normal((2, 7 * 60 * 180, 128), dtype=np.float32)).cuda().bfloat16()
     times = {"fwd_ms": cuda_ms(lambda: gather_forward(value, off, wgt, ref, GATHER_ATTENTION), 5),
              "fwd_bwd_ms": cuda_ms(lambda: gather_run(value, off, wgt, ref, g, GATHER_ATTENTION), 5)}
     print(f"gather attention, one layer at the flagship in bf16: forward {times['fwd_ms']:.3f} ms, forward and "
-          f"backward {times['fwd_bwd_ms']:.3f} ms (B3 once)")
+          f"backward {times['fwd_bwd_ms']:.3f} ms (each gather kernel and B3 once)")
     del value, off, wgt, ref, g
     torch.cuda.empty_cache()
 
@@ -1406,7 +1434,100 @@ def gather_kernel_phase(rng) -> dict:
     b3["errs"].append(warp_case("aio-f32", c32["g"], c32["sx"], c32["sy"], c32["h"], c32["w"], scaled=True)["err"])
     del c, c32
     torch.cuda.empty_cache()
-    return {"b3": b3, "errs": errs, "times": times}
+    return {"b3": b3, "errs": errs, "times": times, "kernels": kernels}
+
+
+def gather_kernel_bound(kernel, b, l, h, w, m, d, p, itemsize=2, **_) -> dict:
+    """:func:`bound` of one launch of gather's forward (``kernel="fwd"``) or
+    backward at a shape with every token a query: each input read once and
+    each output written once (value, weights, output, g, gs and g_weights
+    in the value dtype of ``itemsize`` bytes; locations, their gradient and
+    sx, sy in f32), and its operations (``ops/kernel_flops.py``: B1's, and
+    B2's query side)."""
+    from mvdetr_tpu_torch.ops import kernel_flops as kf
+
+    q = l * h * w
+    samples, value, outputs = b * q * m * l * p, b * l * h * w * m * d, b * q * m * d
+    read = itemsize * (value + samples) + 8 * samples  # value, weights, locations
+    if kernel == "fwd":
+        nbytes, flops = read + itemsize * outputs, kf.msda_fwd_flops(samples, d)
+    else:  # g in; g_locations, sx and sy (f32 pairs), g_weights and gs out
+        nbytes = read + itemsize * outputs + 16 * samples + itemsize * samples * (1 + d)
+        flops = kf.msda_bwd_flops(samples, d) - kf.msda_bwd_value_flops(samples, d)
+    return {**bound(nbytes, flops), "bytes": nbytes}
+
+
+def gather_kernel_inputs(rng, shape, dtype, reach=6.0):
+    """Gather's kernel inputs on the card from :func:`gather_inputs` (every
+    token a query at the identity grid map; offsets uniform in ``+-reach``
+    cells, past every edge of the map, or the radial init where ``reach``
+    is None): ``value [B, L*H*W, M, D]`` and ``weights [B, Q, M, L, P]`` in
+    ``dtype``, f32 ``locations [B, Q, M, L, P, 2]`` from the path's
+    ``sampling_locations``, and a cotangent ``g [B, Q, M*D]`` in ``dtype``."""
+    import torch
+
+    from mvdetr_tpu_torch.models.deformable import sampling_locations
+
+    b, l, h, w, m, d, p = (shape[k] for k in ("b", "l", "h", "w", "m", "d", "p"))
+    value, off, wgt, ref = gather_inputs(rng, **shape, reach=reach)
+    q = l * h * w
+    loc = sampling_locations(ref, off.reshape(b, q, m, l, p, 2), h, w).contiguous()
+    g = torch.from_numpy(rng.standard_normal((b, q, m * d), dtype=np.float32)).cuda().to(dtype)
+    return value.reshape(b, q, m, d).to(dtype), loc, wgt.reshape(b, q, m, l, p).to(dtype).contiguous(), g
+
+
+def gather_kernel_case(name, shape, dtype, rng, reach=6.0, timed=False) -> dict:
+    """Gather's kernels (``msda_gather_fwd``, ``msda_gather_bwd``) against
+    their plain versions on the card (``gather_fwd_plain``,
+    ``gather_bwd_plain``) at ``shape``: the output and the locations' and
+    weights' gradients within GATHER_ATOL (f32) or GATHER_BF16_ATOL (bf16)
+    of scale, B3's inputs (sx, sy, gs) bitwise; two launches of each kernel
+    bitwise equal, each launch counted. ``timed``: each kernel and its plain
+    version by CUDA events, beside the kernel's bound. Returns the errors
+    (as shares of scale) and times."""
+    import torch
+
+    from mvdetr_tpu_torch.ops import msda
+
+    v, loc, wgt, g = gather_kernel_inputs(rng, shape, dtype, reach)
+    h, w = shape["h"], shape["w"]
+    label = f"gather kernels {name} {str(dtype).split('.')[-1]}"
+    before = (msda.msda_gather_fwd.launches, msda.msda_gather_bwd.launches)
+    fwd = functools.partial(msda.msda_gather_fwd, v, loc, wgt, h, w)
+    bwd = functools.partial(msda.msda_gather_bwd, v, loc, wgt, g, h, w)
+    runs = [(fwd(), *bwd()) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = (msda.msda_gather_fwd.launches, msda.msda_gather_bwd.launches)
+    check(after == (before[0] + 2, before[1] + 2), f"{label}: launches {before} -> {after}, expected 2 each")
+    names = ("output", "sx", "sy", "gs", "g_locations", "g_weights")
+    for what, a, b_ in zip(names, *runs):
+        check(torch.equal(a, b_), f"{label}: two launches differ in {what}")
+    ours = dict(zip(names, runs[0]))
+    ref = dict(zip(names, (msda.gather_fwd_plain(v, loc, wgt, h, w), *msda.gather_bwd_plain(v, loc, wgt, g, h, w))))
+    torch.cuda.synchronize()
+    for what in ("sx", "sy", "gs"):
+        check(torch.equal(ours[what], ref[what]), f"{label}: {what} differs from the plain path's")
+    atol = GATHER_ATOL if dtype == torch.float32 else GATHER_BF16_ATOL
+    # each error as a share of max(1, scale), the bound's unit
+    errs = {what: _held(label, what, ours[what], ref[what], atol) / max(1.0, float(ref[what].float().abs().max()))
+            for what in ("output", "g_locations", "g_weights")}
+    print(f"{label}: B={shape['b']} L={shape['l']} {h}x{w} M={shape['m']} D={shape['d']} P={shape['p']}, "
+          + ("the radial init" if reach is None else f"offsets in +-{reach}") + ": max_abs_err of scale output / "
+          "g_locations / g_weights " + " / ".join(f"{e:.3e}" for e in errs.values()) + f" (bound {atol:.3e}); sx, "
+          "sy, gs bitwise the plain path's; two launches bitwise equal")
+    rec = {"errs": errs}
+    if timed:
+        del runs, ours, ref
+        torch.cuda.empty_cache()
+        itemsize = v.element_size()
+        for kernel, fn, plain in (("fwd", fwd, functools.partial(msda.gather_fwd_plain, v, loc, wgt, h, w)),
+                                  ("bwd", bwd, functools.partial(msda.gather_bwd_plain, v, loc, wgt, g, h, w))):
+            rec[kernel] = {"ms": cuda_ms(fn, 10), "plain_ms": cuda_ms(plain, 3),
+                           **gather_kernel_bound(kernel, **shape, itemsize=itemsize)}
+            r = rec[kernel]
+            print(f"{label}: {kernel} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, {r['bound_by']}, "
+                  f"{r['bytes'] / 1e6:.1f} MB), plain {r['plain_ms']:.3f} ms")
+    return rec
 
 
 def gather_forward(value, off, wgt, ref, shape):
@@ -1987,7 +2108,7 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     batch_size, num_candidates = 2, 512
     kw, mode, per_request, _ = FULL_WIDTH[config]
     label = "serve" + FULL_WIDTH_LABELS[config]
-    wrappers = main_path_launches()
+    wrappers, gk = main_path_launches(), gather_kernels()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16,
                             attn_radius=4, device="cuda", seed=0, **kw)
     perturb_attention(model, seed=1)
@@ -1998,7 +2119,7 @@ def serve_full_width(rig, config="flagship", n_timed=3):
              "affine_mats": np.tile(np.eye(3, dtype=np.float32), (batch_size, 7, 1, 1))}
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
+    for fn in (*wrappers.values(), *gk.values()):
         fn.launches = 0
     norms = norm_calls()
     passes_before = distance_nms.passes
@@ -2015,6 +2136,7 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     launches = {name: fn.launches for name, fn in wrappers.items()}
     expected = {name: k * (1 + n_timed) for name, k in zip(wrappers, per_request)}
     check(launches == expected, f"{label}: launches {launches} in {1 + n_timed} requests, expected {expected}")
+    gather = check_gather_launches(label, config, gk, 1 + n_timed, train=False)
     norms = check_norm_calls(label, model, norms, 1 + n_timed, train=False)
     # one NMS call a request: at least one pass, at most one more than its candidates
     passes = distance_nms.passes - passes_before
@@ -2029,12 +2151,13 @@ def serve_full_width(rig, config="flagship", n_timed=3):
     clip = f", offset_clip_fraction {float(aux['offset_clip_fraction']):.4f}" if "offset_clip_fraction" in aux else ""
     check(("offset_clip_fraction" in aux) == (mode in CLAMPED_MODES), f"{label}: offset_clip_fraction in "
           f"{sorted(aux)}")
-    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches}, "
-          f"NMS passes {passes} (one host sync each) in {1 + n_timed} requests")
+    print(f"{label}: kept detections per frame set {keep.sum(1).tolist()}{clip}, launches {launches}, gather "
+          f"kernels {gather}, NMS passes {passes} (one host sync each) in {1 + n_timed} requests")
     profile_table(label, lambda: eval_step(model, batch, world_reduce=4, num_candidates=num_candidates, nms_dist=20.0),
-                  med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "batch_norm": NORM_KERNELS,
-                        **GATHER_LABEL})
-    return launches, {"median_ms": med, "peak_gib": peak, "nms_passes": passes, "batch_norm_calls": norms}
+                  med, {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "msda_gather": ("msda_gather_",),
+                        "batch_norm": NORM_KERNELS, **GATHER_LABEL})
+    return launches, {"median_ms": med, "peak_gib": peak, "nms_passes": passes, "batch_norm_calls": norms,
+                      "gather_launches": gather}
 
 
 def train_full_width(rig, batch, config="flagship", n_timed=5):
@@ -2052,7 +2175,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     batch_size = 2
     kw, mode, _, per_step = FULL_WIDTH[config]
     label = "train" + FULL_WIDTH_LABELS[config]
-    wrappers = main_path_launches()
+    wrappers, gk = main_path_launches(), gather_kernels()
     model = MVDeTr.from_rig(rig, world_reduce=4, img_reduce=12, compute_dtype=torch.bfloat16, attn_radius=4,
                             device="cuda", seed=0, **kw)
     check(getattr(model.world_feat, "mode", None) == mode, f"{label}: attention mode "
@@ -2063,7 +2186,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in wrappers.values():
+    for fn in (*wrappers.values(), *gk.values()):
         fn.launches = 0
     norms = norm_calls()
     times, losses = [], []
@@ -2078,6 +2201,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     steps = 1 + n_timed
     expected = {name: k * steps for name, k in zip(wrappers, per_step)}
     check(launches == expected, f"{label}: launches {launches} in {steps} steps, expected {expected}")
+    gather = check_gather_launches(label, config, gk, steps, train=True)
     norms = check_norm_calls(label, model, norms, steps, train=True)
     timed = times[1:]
     med = float(np.median(timed))
@@ -2088,11 +2212,12 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
     check(("offset_clip_fraction" in aux) == (mode in CLAMPED_MODES), f"{label}: offset_clip_fraction in "
           f"{sorted(aux)}")
     print(f"{label}: losses {[round(v, 5) for v in losses]}, last step "
-          + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches} in {steps} steps")
+          + ", ".join(f"{k} {float(v):.4f}" for k, v in aux.items()) + f"; launches {launches}, gather kernels "
+          f"{gather} in {steps} steps")
     ours = profile_table(label, lambda: train_step(state, batch, gen), med,
                          {"msda_windowed_fwd": ("msda_windowed_fwd_kernel",), "msda_windowed_bwd": ("msda_bwd_",),
                           "warp_bwd": ("warp_bwd",),  # B3's four stages, CUB's sort kernels among them
-                          "batch_norm": NORM_KERNELS, **GATHER_LABEL})
+                          "msda_gather": ("msda_gather_",), "batch_norm": NORM_KERNELS, **GATHER_LABEL})
 
     # two steps from the same state and generator, with PyTorch's default
     # algorithms (must be bitwise equal) and with deterministic ones (reported)
@@ -2128,7 +2253,7 @@ def train_full_width(rig, batch, config="flagship", n_timed=5):
               f"order {grads_differ[::-1][:6]}; step {a[3]:.1f} and {b[3]:.1f} ms; warnings {a[4] + b[4]}")
     check(verdict["default algorithms"], f"{label}: two steps with PyTorch's default algorithms are not bitwise "
           "equal")
-    return launches, ours, {"median_ms": med, "peak_gib": peak, "batch_norm_calls": norms}
+    return launches, ours, {"median_ms": med, "peak_gib": peak, "batch_norm_calls": norms, "gather_launches": gather}
 
 
 def bench_twin_phase() -> dict:
@@ -2316,6 +2441,9 @@ FULL_WIDTH = {
     "vgg11": (dict(arch="vgg11"), "windowed", (3, 0, 0), (3, 3, 1)),
     "remat": (dict(remat_backbone=True), "windowed", (3, 0, 0), (3, 3, 1)),
 }
+# gather mode's kernels (msda_gather_fwd, msda_gather_bwd) per request and per train step: one of each an encoder
+# layer in gather and aio; the other configurations launch neither
+GATHER_KERNEL_LAUNCHES = {"gather": ((3, 0), (3, 3)), "aio": ((3, 0), (3, 3))}
 FULL_WIDTH_LABELS = {"flagship": "", "shadow": " n_points=8", "gather": " gather", "aio": " aio", "conv": " conv",
                      "trans": " trans", "deform_conv": " deform_conv", "vgg11": " vgg11", "remat": " remat"}
 VARIANTS = ("conv", "trans", "deform_conv", "vgg11", "remat")
@@ -2340,6 +2468,14 @@ GATHER_ATTENTION = dict(b=2, l=7, h=60, w=180, m=8, d=16, p=4)
 AIO_ATTENTION = dict(b=2, l=1, h=120, w=360, m=8, d=16, p=4)
 RECIPE_GATHER_ATTENTION = dict(b=1, l=4, h=15, w=30, m=8, d=16, p=4)
 GATHER_ATOL = 1e-5  # f32 card vs CPU, of max(1, scale): sums of up to 4*L*P terms (B3: of a cell's taps) in another order
+# gather's kernels against the plain path on the card in bf16, of max(1, scale): the two differ only in the order of
+# each f32 corner sum (forward: over the L*P samples; backward: a dot over D), so each of the 4 corner sums that an
+# output takes may round to a neighbouring bf16 value, one rounding (2^-8 of scale) a corner sum
+GATHER_BF16_ATOL = 4 * 2.0**-8
+# gather's kernels at heads and points the cells do not run, B=1, L=3, 9x21, M=2: D a multiple of 8 from one lane
+# (8) to one lane of four idle (24), a full warp (256) and two chunks a lane (512); P = 1 and 3 (one sample at a time)
+GATHER_KERNEL_EDGES = {f"D{d}-P{p}": dict(b=1, l=3, h=9, w=21, m=2, d=d, p=p)
+                       for d, p in ((8, 4), (24, 4), (32, 4), (256, 4), (512, 4), (16, 1), (16, 3))}
 # gather vs B1/B2 in f32, of max(1, scale): tests/test_msda_windowed.py's bound on its 8x12 grid, and at the
 # flagship's 60x180 grid a wider one: gather's x = (ref + off/W)*W - 0.5 carries up to ~W * 2^-23 ~ 2e-5 cells of f32
 # rounding that windowed's x_q + off does not, and a sample moves by its slope (values of order 1) times that
@@ -2504,6 +2640,23 @@ class EpochProbe:
         for owner, name, orig in reversed(self._saved):
             setattr(owner, name, orig)
         self._saved.clear()
+
+
+def gather_kernels() -> dict:
+    from mvdetr_tpu_torch.ops.msda import msda_gather_bwd, msda_gather_fwd
+
+    return {"msda_gather_fwd": msda_gather_fwd, "msda_gather_bwd": msda_gather_bwd}
+
+
+def check_gather_launches(label, config, kernels, units: int, train: bool) -> dict:
+    """Gather's kernel launches in ``units`` requests or train steps of a
+    ``FULL_WIDTH`` configuration against GATHER_KERNEL_LAUNCHES; returns
+    them by kernel name."""
+    per = GATHER_KERNEL_LAUNCHES.get(config, ((0, 0), (0, 0)))[int(train)]
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    expected = {name: k * units for name, k in zip(kernels, per)}
+    check(launches == expected, f"{label}: gather kernel launches {launches} in {units}, expected {expected}")
+    return launches
 
 
 def main_path_launches() -> dict:
@@ -2744,7 +2897,7 @@ def checkpoint_phase(probe) -> dict:
     Nothing can be downloaded, so the ``MultiviewDetector.pth`` is a seeded
     port model with its offset biases scaled by CKPT_BIAS_SCALE and its
     offset kernels left at zero, saved as ``{"state_dict": {"module." + k:
-    v}}``. Evaluated in gather mode (no kernel launch), then at the
+    v}}``. Evaluated in gather mode (no B1, B2 or B3 launch), then at the
     defaults (the radius picked from the biases, B1 three times per eval
     batch, no clamp binding); a wrong ``--n_points`` must exit with the
     flag to pass. Both evaluations print a MODA line, and the two loaded
@@ -2966,7 +3119,7 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from mvdetr_tpu_torch import native
-    from mvdetr_tpu_torch.ops import batch_norm, kernel_build, lane_broadcast, msda_windowed, warp
+    from mvdetr_tpu_torch.ops import batch_norm, kernel_build, lane_broadcast, msda, msda_windowed, warp
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -2974,7 +3127,7 @@ def main(argv: list[str] | None = None) -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     names = (msda_windowed.KERNEL_NAME, msda_windowed.BWD_KERNEL_NAME, warp.KERNEL_NAME, lane_broadcast.KERNEL_NAME,
-             batch_norm.KERNEL_NAME)
+             batch_norm.KERNEL_NAME, msda.KERNEL_NAME)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(kernel_build.build, names))
@@ -2983,6 +3136,7 @@ def main(argv: list[str] | None = None) -> int:
     warp.load_library()
     lane_broadcast.load_library()
     batch_norm.load_library()
+    msda.load_library()
     print(f"build: {', '.join(names)} in {time.perf_counter() - t0:.1f} s (in parallel)")
     t0 = time.perf_counter()
     native.load_library()  # the data path's host library (g++), built at first use as the kernels are
@@ -3053,13 +3207,15 @@ def main(argv: list[str] | None = None) -> int:
     shadow_train_launches, _, _ = train_full_width(rig, batch, "shadow")
     torch.cuda.empty_cache()
     # (h) gather attention and (i) aio at the same width: B3 on the camera warp and each encoder layer's value
-    gather_launches = {"serve": serve_full_width(rig, "gather")[0]}
+    gather_launches, gather_stats = {}, {}
+    gather_launches["serve"], gather_stats["gather:serve"] = serve_full_width(rig, "gather")
     torch.cuda.empty_cache()
-    gather_launches["train"] = train_full_width(rig, batch, "gather")[0]
+    gather_launches["train"], _, gather_stats["gather:train"] = train_full_width(rig, batch, "gather")
     torch.cuda.empty_cache()
-    aio_launches = {"serve": serve_full_width(rig, "aio", n_timed=1)[0]}
+    aio_launches = {}
+    aio_launches["serve"], gather_stats["aio:serve"] = serve_full_width(rig, "aio", n_timed=1)
     torch.cuda.empty_cache()
-    aio_launches["train"] = train_full_width(rig, batch, "aio", n_timed=3)[0]
+    aio_launches["train"], _, gather_stats["aio:train"] = train_full_width(rig, batch, "aio", n_timed=3)
     torch.cuda.empty_cache()
     # the other fusions, VGG-11 and remat at the same width
     variant_launches, variant_stats = {}, {"flagship": {"request": serve_stats, "step": train_stats}}
@@ -3185,6 +3341,21 @@ def main(argv: list[str] | None = None) -> int:
                                                              "device_ms", "segments", "module_ms", "body")})
     rows[2]["max_abs_err"] = max(rows[2]["max_abs_err"], deform["err"])
     rows[2]["gather_layer_ms"] = gather["times"]
+    # gather mode's kernels (no TPU kernel: XLA's gather): launches by path (the full-width runs), the largest error
+    # against the plain path, the times at the cells' shape (B=2; B=1 and the radial init beside them)
+    kern = gather["kernels"]
+    for name, kernel in ((f"{msda.KERNEL_NAME}_fwd", "fwd"), (f"{msda.KERNEL_NAME}_bwd", "bwd")):
+        by_path = {path: st["gather_launches"][name] for path, st in gather_stats.items()}
+        check(by_path["gather:train"] > 0 and by_path["aio:train"] > 0, f"gather and aio: {name} launched no time")
+        rec = kern["cells-b2"][kernel]
+        rows.append({
+            "name": name, "route": "cuda", "source": f"mvdetr_tpu_torch/csrc/{msda.KERNEL_NAME}.cu", "replaces": None,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(max(r["errs"].values()) for r in kern.values()), "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+            "ms_b1": kern["cells-b1"][kernel]["ms"], "plain_ms_b1": kern["cells-b1"][kernel]["plain_ms"],
+            "bound_ms_b1": kern["cells-b1"][kernel]["bound_ms"], "ms_radial": kern["cells-b2-radial"][kernel]["ms"],
+        })
     rows[2]["gather_attention_max_abs_err"] = max(gather["errs"])
     rows[0]["checkpoint_radius"] = ckpt["radius"]
     rows[0]["nccl_step_ms"] = {"sharded": nccl["sharded_step_ms"], "plain": nccl["plain_step_ms"]}

@@ -373,7 +373,7 @@ def _load_reference_checkpoint(args, model) -> None:
     print(f"Loading reference torch checkpoint {args.load_torch_ckpt} (eval only)")
     if args.attn_mode not in ("gather",):
         print("NOTE: reference checkpoints train with unbounded offsets; "
-              "--attn_mode gather is reference-exact (slow). The fast paths clamp "
+              "--attn_mode gather is reference-exact (unclamped offsets). The windowed and warped paths clamp "
               "offsets to --attn_radius — watch the offset_clip_fraction diagnostic.")
     sd = read_torch_checkpoint(args.load_torch_ckpt)
     ckpt_cfg = detect_reference_config(sd)

@@ -10,7 +10,10 @@ formulas give ``chip_smoke.py``'s bounds):
 - B2 (``msda_windowed_bwd``): 30 a sample-channel, ~3x B1's (three
   cotangent sums, four value taps); its value side 8 of them (four taps, one
   multiply-add each), its query side the other 22;
-- B3 (``warp_bwd``): 12 a (query, channel): 4 taps x (2 multiplies + 1 add).
+- B3 (``warp_bwd``): 12 a (query, channel): 4 taps x (2 multiplies + 1 add);
+- gather mode's kernels (``msda_gather_fwd``, ``msda_gather_bwd``): B1's
+  function and B2's query side at unclamped coordinates, 10 and 22 (B3
+  takes the value side).
 
 A sample is one (query, head, level, point) of the attention weights
 ``[B, C, H, W, M, L, P]``, a channel one of the head's ``D``.
@@ -77,15 +80,16 @@ class KernelCalls:
 
 @contextlib.contextmanager
 def record(counter=None):
-    """Count B1, B2 and B3 in the code run inside: yields a
-    :class:`KernelCalls`. The kernels' dispatch points
-    (``msda_windowed._WindowedAttentionFn`` and ``warp.warp_scatter_accumulate``)
+    """Count B1, B2, B3 and gather mode's kernels in the code run inside:
+    yields a :class:`KernelCalls`. The kernels' dispatch points
+    (``msda_windowed._WindowedAttentionFn``, ``msda._GatherAttnFn`` and
+    ``warp.warp_scatter_accumulate``)
     look their wrappers and plain versions up in their modules at each call;
     those names are wrapped for the duration. ``counter``: a running
     ``torch.utils.flop_counter.FlopCounterMode`` whose count the plain
     versions' products are taken out of. Launches inside are not added to
     the wrappers' ``launches`` counts."""
-    from mvdetr_tpu_torch.ops import msda_windowed, warp
+    from mvdetr_tpu_torch.ops import msda, msda_windowed, warp
 
     seen = KernelCalls()
 
@@ -110,6 +114,10 @@ def record(counter=None):
     def attention_bwd(value, offsets, weights, *rest):
         return (tuple(weights.shape), value.shape[-1]), msda_bwd_flops(weights.numel(), value.shape[-1])
 
+    def query_side(value, offsets, weights, *rest):
+        n, d = weights.numel(), value.shape[-1]
+        return (tuple(weights.shape), d), msda_bwd_flops(n, d) - msda_bwd_value_flops(n, d)
+
     def scatter(g, *rest):
         return tuple(g.shape), warp_bwd_flops(g.numel())
 
@@ -117,6 +125,10 @@ def record(counter=None):
                (msda_windowed, "ms_deform_attn_windowed", "msda_windowed_fwd", attention),
                (msda_windowed, "msda_windowed_bwd", "msda_windowed_bwd", attention_bwd),
                (msda_windowed, "ms_deform_attn_windowed_bwd", "msda_windowed_bwd", attention_bwd),
+               (msda, "msda_gather_fwd", "msda_gather_fwd", attention),
+               (msda, "gather_fwd_plain", "msda_gather_fwd", attention),
+               (msda, "msda_gather_bwd", "msda_gather_bwd", query_side),
+               (msda, "gather_bwd_plain", "msda_gather_bwd", query_side),
                (warp, "warp_bwd", "warp_bwd", scatter),
                (warp, "bilinear_scatter_matmul", "warp_bwd", scatter)]
     saved = [(module, name, getattr(module, name)) for module, name, _, _ in wrapped]

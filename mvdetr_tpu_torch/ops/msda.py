@@ -10,8 +10,11 @@ Contract (the JAX module's docstring)::
     -> [B, Q, M*D]
 
 with every corner outside its level masked on its own. JAX runs this as a
-plain XLA gather with no Pallas kernel, so the forward here is a plain torch
-gather too (:func:`ms_deform_attn_same_shape`).
+plain XLA gather with no Pallas kernel. Here the plain torch gather
+(:func:`ms_deform_attn_same_shape`, :func:`gather_fwd_plain`) is the CPU
+path and the oracle of the hand-written kernels ``csrc/msda_gather.cu``
+(:func:`msda_gather_fwd`, :func:`msda_gather_bwd`), which a CUDA tensor
+launches, or raises: nothing falls back between them.
 
 The backward is :class:`_GatherAttnFn`'s, with no scatter at all: autograd
 through ``index_select`` would accumulate the value's gradient with
@@ -24,7 +27,9 @@ of the warp backward (TPU kernel B3): on a CUDA tensor
 :func:`~mvdetr_tpu_torch.ops.sampling.bilinear_scatter_matmul`. The
 locations' and weights' gradients are gathers and products, as JAX's
 autodiff forms them (``floor`` has zero gradient, so the slope comes through
-``x - floor(x)`` alone).
+``x - floor(x)`` alone). :func:`msda_gather_bwd` forms them, and B3's
+inputs, in one pass over the samples; :func:`gather_bwd_plain` is its plain
+version.
 
 The pixel coordinates are XLA's on the CPU, bit for bit: XLA contracts
 ``loc * W - 0.5`` into one fused multiply-add, rounded once, and so does
@@ -37,10 +42,18 @@ there, but the offsets' gradient is not.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from mvdetr_tpu_torch.ops import kernel_build
 from mvdetr_tpu_torch.ops.sampling import bilinear_gather
 from mvdetr_tpu_torch.ops.warp import warp_scatter_accumulate
+
+KERNEL_NAME = "msda_gather"
+MAX_HEAD_DIM = 1024  # csrc/msda_gather.cu: 8 channels a chunk, 32 lanes a (query, head), 4 chunks a lane
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -203,87 +216,249 @@ def ms_deform_attn_same_shape(value: torch.Tensor, spatial_shape, num_levels: in
     all L*P taps. Returns ``[B, Q, M*D]``; equal to :func:`ms_deform_attn`
     on same-shape inputs up to the order of the f32 sums."""
     h, w = _check(value, spatial_shape, num_levels, sampling_locations, attention_weights)
+    return gather_fwd_plain(value, sampling_locations, attention_weights, h, w)
+
+
+def gather_fwd_plain(value, locations, weights, h: int, w: int) -> torch.Tensor:
+    """The forward in plain PyTorch on any device: ``value [B, L*H*W, M,
+    D]``, f32 ``locations [B, Q, M, L, P, 2]``, ``weights [B, Q, M, L, P]``
+    in the value dtype -> ``[B, Q, M*D]``. The CPU path of
+    :class:`_GatherAttnFn`, and on the card the oracle of
+    :func:`msda_gather_fwd`."""
     b, _, m, d = value.shape
-    q = sampling_locations.shape[1]
-    x, y = _pixel_coords(sampling_locations, h, w)
-    wgt = attention_weights.movedim(2, 1).reshape(b * m, q, -1)
-    out = _forward(_patch_rows(value, num_levels, h, w), x, y, wgt, h, w)
+    _, q, _, l, p, _ = locations.shape
+    x, y = _pixel_coords(locations, h, w)
+    wgt = weights.movedim(2, 1).reshape(b * m, q, l * p)
+    out = _forward(_patch_rows(value, l, h, w), x, y, wgt, h, w)
     return out.view(b, m, q, d).movedim(1, 2).reshape(b, q, m * d)
 
 
-class _GatherAttnFn(torch.autograd.Function):
-    """:func:`ms_deform_attn_same_shape` with a backward free of scatters.
+def gather_bwd_plain(value, locations, weights, g, h: int, w: int, value_grad: bool = True,
+                     sample_grads: bool = True):
+    """The backward in plain PyTorch on any device, for the cotangent ``g
+    [B, Q, M*D]`` in the value dtype -> ``(sx, sy, gs, g_locations,
+    g_weights)``; the first three, the value gradient's B3 inputs, None
+    unless ``value_grad``, the last two None unless ``sample_grads``:
 
-    The forward saves the value, the f32 pixel coordinates and the weights;
-    the backward re-gathers the taps from the value one corner at a time:
-
-    - ``g_value``: the weight times the cotangent, ``[B*M*L, Q*P, D]``, into
-      :func:`warp_scatter_accumulate` at that level's coordinates on one
-      ``H x W`` map (one call, so no tap crosses a level's boundary);
+    - ``sx, sy [B*M*L, Q*P]``: the samples' f32 pixel coordinates, one row
+      per (batch, head, level) map;
+    - ``gs [B*M*L, Q*P, D]``: each sample's cotangent times its weight;
     - ``g_locations``: per corner ``+-wy`` (x) and ``+-wx`` (y) times the
-      weight times ``<tap, g_out>``, rounded to the value dtype as JAX rounds
+      weight times ``<tap, g>``, rounded to the value dtype as JAX rounds
       ``dcw * wgt``, masked, summed in f32 and scaled by ``W`` (``H``);
-    - ``g_weights``: ``sum_corners <tap, g_out> * where(inb, wy*wx, 0)`` in
-      the value dtype.
-    """
+    - ``g_weights``: ``sum_corners <tap, g> * where(inb, wy*wx, 0)`` in the
+      value dtype.
+
+    The CPU path of :class:`_GatherAttnFn`, and on the card the oracle of
+    :func:`msda_gather_bwd`."""
+    b, _, m, d = value.shape
+    _, q, _, l, p = weights.shape
+    dt = value.dtype
+    x, y = _pixel_coords(locations, h, w)
+    g = g.reshape(b, q, m, d).movedim(2, 1)  # [B, M, Q, D]
+    sx = sy = gs = g_loc = g_wgt = None
+    if value_grad:
+        # each sample's cotangent times its weight, [B, M, L, Q, P, D], at its level's coordinates
+        wgt_l = weights.permute(0, 2, 3, 1, 4)  # [B, M, L, Q, P]
+        gs = (wgt_l[..., None] * g[:, :, None, :, None, :]).reshape(b * m * l, q * p, d)
+        sx, sy = (level_major(t, b, m, l) for t in (x, y))
+    if sample_grads:
+        rows, corners = _corners(x, y, h, w)
+        taps = _taps(_patch_rows(value, l, h, w), rows)
+        del rows
+        gq = g.reshape(b * m, q, d, 1)
+        wgt = weights.movedim(2, 1).reshape(b * m, q, l * p)
+        g_w = torch.zeros((b * m, q, l * p), dtype=dt, device=value.device)
+        gx = torch.zeros(x.shape, dtype=torch.float32, device=value.device)
+        gy = torch.zeros(x.shape, dtype=torch.float32, device=value.device)
+        for c, (inb, wyc, wxc, sy_, sx_) in enumerate(corners):
+            dot = torch.matmul(taps[:, :, :, c], gq).squeeze(-1)  # <tap, g_out>, [BM, Q, L*P]
+            g_w = g_w + dot * torch.where(inb, wyc * wxc, 0.0).to(dt).reshape(dot.shape)
+            t = torch.where(inb, (dot * wgt).float().reshape(x.shape), 0.0)
+            gx = gx + sx_ * wyc * t
+            gy = gy + sy_ * wxc * t
+        g_loc = torch.stack([gx * w, gy * h], -1).reshape(b, m, q, l, p, 2).movedim(1, 2)
+        g_wgt = g_w.reshape(b, m, q, l, p).movedim(1, 2)
+    return sx, sy, gs, g_loc, g_wgt
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries of a build of ``csrc/msda_gather.cu``."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    shape = [i, ll, i, i, i, i, i, i, i]  # dtype, B*Q, Q, M, L, H, W, D, P
+    lib.msda_gather_fwd_launch.argtypes = [p, p, p, p, *shape, p]
+    lib.msda_gather_bwd_launch.argtypes = [p, p, p, p, *shape, p, p, p, p, p, p]
+    for fn in (lib.msda_gather_fwd_launch, lib.msda_gather_bwd_launch):
+        fn.restype = ctypes.c_int
+    lib.msda_gather_error_string.argtypes = [ctypes.c_int]
+    lib.msda_gather_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the gather kernels' shared library."""
+    return bind(ctypes.CDLL(str(kernel_build.build(KERNEL_NAME))))
+
+
+def _raise_on(lib: ctypes.CDLL, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"msda_gather launch failed: {lib.msda_gather_error_string(err).decode()} "
+                           f"(cudaError {err})")
+
+
+def check_inputs(value, locations, weights, h: int, w: int, g=None) -> None:
+    """Raise ValueError on inputs the kernels do not take: shapes that do
+    not fit (:func:`_check`), a dtype other than f32 or bf16, weights (or a
+    cotangent ``g [B, Q, M*D]``) in another dtype than the value, locations
+    that are not f32, D not a multiple of 8 or above ``MAX_HEAD_DIM``, a
+    tensor that is not contiguous, and last, tensors off one CUDA device."""
+    if value.dim() != 4 or locations.dim() != 6:
+        raise ValueError(f"msda_gather takes value [B, S, M, D] and locations [B, Q, M, L, P, 2], got "
+                         f"{tuple(value.shape)} and {tuple(locations.shape)}")
+    if value.dtype not in _DTYPE_CODES:
+        raise ValueError(f"msda_gather takes an f32 or bf16 value, got {value.dtype}")
+    if locations.dtype != torch.float32:
+        raise ValueError(f"msda_gather takes f32 locations, got {locations.dtype}")
+    _check(value, (h, w), locations.shape[3], locations, weights)
+    d = value.shape[3]
+    if d % 8 != 0 or d > MAX_HEAD_DIM:
+        raise ValueError(f"msda_gather: a head of D = {d} channels; the kernels take a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}")
+    tensors = {"value": value, "locations": locations, "weights": weights}
+    if g is not None:
+        b, q, m = locations.shape[:3]
+        if tuple(g.shape) != (b, q, m * d) or g.dtype != value.dtype:
+            raise ValueError(f"msda_gather_bwd: g {tuple(g.shape)} {g.dtype}, expected {(b, q, m * d)} "
+                             f"{value.dtype}")
+        tensors["g"] = g
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"msda_gather: {name} must be contiguous")
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != value.device:
+            raise ValueError(f"msda_gather runs on one CUDA device only, got {name} on {t.device}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data is not 16-byte aligned (the kernels'
+    vector loads)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _shape_args(value, locations, h: int, w: int) -> tuple:
+    b, q, m, l, p, _ = locations.shape
+    return (_DTYPE_CODES[value.dtype], b * q, q, m, l, h, w, value.shape[3], p)
+
+
+def msda_gather_fwd(value, locations, weights, h: int, w: int) -> torch.Tensor:
+    """Launch the gather forward (``csrc/msda_gather.cu``): the contract of
+    :func:`gather_fwd_plain` on contiguous CUDA tensors, value and weights
+    in one dtype (f32 or bf16), ``D`` a multiple of 8. Raises on any input
+    the kernel does not take; never computes on another path. Adds one to
+    ``msda_gather_fwd.launches`` a launch."""
+    check_inputs(value, locations, weights, h, w)
+    b, q, m = locations.shape[:3]
+    out = torch.empty((b, q, m * value.shape[3]), dtype=value.dtype, device=value.device)
+    if out.numel() == 0:
+        return out
+    value, locations, weights = (_aligned(t) for t in (value, locations, weights))
+    lib = load_library()
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        _raise_on(lib, lib.msda_gather_fwd_launch(value.data_ptr(), locations.data_ptr(), weights.data_ptr(),
+                                                  out.data_ptr(), *_shape_args(value, locations, h, w), stream))
+    msda_gather_fwd.launches += 1
+    return out
+
+
+msda_gather_fwd.launches = 0
+
+
+def msda_gather_bwd(value, locations, weights, g, h: int, w: int, value_grad: bool = True,
+                    sample_grads: bool = True):
+    """Launch the gather backward (``csrc/msda_gather.cu``) for the
+    cotangent ``g [B, Q, M*D]`` in the value dtype: the contract of
+    :func:`gather_bwd_plain`, ``(sx, sy, gs, g_locations, g_weights)``, in
+    one pass over the samples that re-reads their taps only for
+    ``sample_grads``. Raises on any input the kernel does not take; never
+    computes on another path. Adds one to ``msda_gather_bwd.launches`` a
+    launch."""
+    check_inputs(value, locations, weights, h, w, g)
+    if not (value_grad or sample_grads):
+        raise ValueError("msda_gather_bwd: asked for no gradient")
+    b, q, m, l, p, _ = locations.shape
+    d, dev = value.shape[3], value.device
+    sx = sy = gs = g_loc = g_wgt = None
+    if value_grad:
+        sx = torch.empty((b * m * l, q * p), dtype=torch.float32, device=dev)
+        sy = torch.empty((b * m * l, q * p), dtype=torch.float32, device=dev)
+        gs = torch.empty((b * m * l, q * p, d), dtype=value.dtype, device=dev)
+    if sample_grads:
+        g_loc = torch.empty(locations.shape, dtype=torch.float32, device=dev)
+        g_wgt = torch.empty(weights.shape, dtype=value.dtype, device=dev)
+    if b * q == 0:
+        return sx, sy, gs, g_loc, g_wgt
+    value, locations, weights, g = (_aligned(t) for t in (value, locations, weights, g))
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise_on(lib, lib.msda_gather_bwd_launch(
+            value.data_ptr(), locations.data_ptr(), weights.data_ptr(), g.data_ptr(),
+            *_shape_args(value, locations, h, w), *map(_ptr, (sx, sy, gs, g_loc, g_wgt)), stream))
+    msda_gather_bwd.launches += 1
+    return sx, sy, gs, g_loc, g_wgt
+
+
+msda_gather_bwd.launches = 0
+
+
+class _GatherAttnFn(torch.autograd.Function):
+    """Gather attention with a backward free of scatters: a CUDA tensor
+    through :func:`msda_gather_fwd` and :func:`msda_gather_bwd`, any other
+    through :func:`gather_fwd_plain` and :func:`gather_bwd_plain`. The
+    forward saves the value, the locations and the weights; the value's
+    gradient is B3's (:func:`warp_scatter_accumulate`) over the backward's
+    weighted cotangents ``[B*M*L, Q*P, D]`` at their level's coordinates on
+    one ``H x W`` map (one call, so no tap crosses a level's boundary)."""
 
     @staticmethod
     def forward(ctx, value, locations, weights, h, w):
-        b, _, m, d = value.shape
-        _, q, _, l, p, _ = locations.shape
-        x, y = _pixel_coords(locations, h, w)
-        wgt = weights.movedim(2, 1).reshape(b * m, q, l * p)
-        out = _forward(_patch_rows(value, l, h, w), x, y, wgt, h, w)
-        ctx.save_for_backward(value, x, y, weights)
+        ctx.save_for_backward(value, locations, weights)
         ctx.hw = (h, w)
-        return out.view(b, m, q, d).movedim(1, 2).reshape(b, q, m * d)
+        return (msda_gather_fwd if value.is_cuda else gather_fwd_plain)(value, locations, weights, h, w)
 
     @staticmethod
     def backward(ctx, g_out):
-        value, x, y, weights = ctx.saved_tensors
+        value, locations, weights = ctx.saved_tensors
         h, w = ctx.hw
         b, _, m, d = value.shape
-        _, q, _, l, p = weights.shape
-        dt = value.dtype
-        g = g_out.to(dt).reshape(b, q, m, d).movedim(2, 1)  # [B, M, Q, D]
-        g_value = g_loc = g_wgt = None
-        if ctx.needs_input_grad[0]:
-            # each sample's cotangent times its weight, [B, M, L, Q, P, D], at its level's coordinates
-            wgt_l = weights.permute(0, 2, 3, 1, 4)  # [B, M, L, Q, P]
-            gs = (wgt_l[..., None] * g[:, :, None, :, None, :]).reshape(b * m * l, q * p, d)
-            sx, sy = (level_major(t, b, m, l) for t in (x, y))
+        l = locations.shape[3]
+        need_value, need_loc, need_wgt = ctx.needs_input_grad[:3]
+        bwd = msda_gather_bwd if value.is_cuda else gather_bwd_plain
+        sx, sy, gs, g_loc, g_wgt = bwd(value, locations, weights, g_out.to(value.dtype).contiguous(), h, w,
+                                       value_grad=need_value, sample_grads=need_loc or need_wgt)
+        g_value = None
+        if need_value:
             gv = warp_scatter_accumulate(gs, sx, sy, h, w)  # [B*M*L, H, W, D]
             del gs, sx, sy
             g_value = gv.reshape(b, m, l, h * w, d).permute(0, 2, 3, 1, 4).reshape(b, l * h * w, m, d)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            rows, corners = _corners(x, y, h, w)
-            taps = _taps(_patch_rows(value, l, h, w), rows)
-            del rows
-            gq = g.reshape(b * m, q, d, 1)
-            wgt = weights.movedim(2, 1).reshape(b * m, q, l * p)
-            g_w = torch.zeros((b * m, q, l * p), dtype=dt, device=value.device)
-            gx = torch.zeros(x.shape, dtype=torch.float32, device=value.device)
-            gy = torch.zeros(x.shape, dtype=torch.float32, device=value.device)
-            for c, (inb, wyc, wxc, sy_, sx_) in enumerate(corners):
-                dot = torch.matmul(taps[:, :, :, c], gq).squeeze(-1)  # <tap, g_out>, [BM, Q, L*P]
-                g_w = g_w + dot * torch.where(inb, wyc * wxc, 0.0).to(dt).reshape(dot.shape)
-                t = torch.where(inb, (dot * wgt).float().reshape(x.shape), 0.0)
-                gx = gx + sx_ * wyc * t
-                gy = gy + sy_ * wxc * t
-            if ctx.needs_input_grad[1]:
-                g_loc = torch.stack([gx * w, gy * h], -1).reshape(b, m, q, l, p, 2).movedim(1, 2)
-            if ctx.needs_input_grad[2]:
-                g_wgt = g_w.reshape(b, m, q, l, p).movedim(1, 2)
-        return g_value, g_loc, g_wgt, None, None
+        return g_value, g_loc if need_loc else None, g_wgt if need_wgt else None, None, None
 
 
 def ms_deform_attn_gather(value: torch.Tensor, spatial_shape, num_levels: int, locations: torch.Tensor,
                           weights: torch.Tensor) -> torch.Tensor:
     """Gather-mode attention with device dispatch, differentiable in all
-    three inputs: the contract of :func:`ms_deform_attn_same_shape`. The
-    backward of a CUDA tensor launches B3 (or raises); a CPU tensor runs the
-    plain adjoint. ``locations`` are taken in f32."""
+    three inputs: the contract of :func:`ms_deform_attn_same_shape`. A CUDA
+    tensor launches ``csrc/msda_gather.cu`` forward and backward, and B3 for
+    the value's gradient (or raises); a CPU tensor runs the plain path.
+    ``locations`` are taken in f32."""
     if value.device.type not in ("cuda", "cpu"):
         raise ValueError(f"ms_deform_attn_gather: unsupported device {value.device}")
     h, w = _check(value, spatial_shape, num_levels, locations, weights)
-    return _GatherAttnFn.apply(value, locations.to(torch.float32), weights, h, w)
+    return _GatherAttnFn.apply(value.contiguous(), locations.to(torch.float32).contiguous(), weights.contiguous(),
+                               h, w)

@@ -26,14 +26,18 @@ from mvdetr_tpu_torch.ops.warp import warp_bwd
 from mvdetr_tpu_torch.train import create_train_state, eval_step, train_step
 from _torch_port import VALUE_PLANES, cuda_device, spans_of, synthetic_train_batch, windowed_inputs  # noqa: F401
 from chip_smoke import (
-    LANE_STRESS_CASES, NORM_EPS, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, TRUNK_NORM_SHAPES, WARP_STRESS_NAMES,
-    bwd_case, free_port, fwd_case, gather_card_vs_cpu, gather_inputs, gather_run, gather_vs_windowed,
-    gather_warp_inputs, norm_case, norm_gap_ok, norm_inputs, shadow_warp_inputs, warp_case, warp_stress_cases,
+    GATHER_KERNEL_EDGES, LANE_STRESS_CASES, NORM_EPS, RECIPE_GATHER_ATTENTION, SHADOW_TAIL_CASES, TRUNK_NORM_SHAPES,
+    WARP_STRESS_NAMES, bwd_case, free_port, fwd_case, gather_card_vs_cpu, gather_inputs, gather_kernel_case,
+    gather_run, gather_vs_windowed, gather_warp_inputs, norm_case, norm_gap_ok, norm_inputs, shadow_warp_inputs,
+    warp_case, warp_stress_cases,
 )
+from mvdetr_tpu_torch.ops.msda import msda_gather_bwd, msda_gather_fwd
 
 pytestmark = pytest.mark.cuda
 
 RIG = dict(num_cam=3, img_shape=(96, 160), worldgrid_shape=(48, 96))
+# gather attention at aio's one level (the BEV grid cut to 30x90)
+AIO_LIKE_ATTENTION = dict(b=1, l=1, h=30, w=90, m=8, d=16, p=4)
 
 
 @pytest.mark.parametrize("radius,m,d,integer,c,hw", [
@@ -294,11 +298,39 @@ def test_gather_matches_cpu_and_windowed_on_card(cuda_device):
     gather_vs_windowed(rng, "recipe", RECIPE_GATHER_ATTENTION)
 
 
+@pytest.mark.parametrize("shape", [RECIPE_GATHER_ATTENTION, AIO_LIKE_ATTENTION, *GATHER_KERNEL_EDGES.values()],
+                         ids=["recipe", "aio", *GATHER_KERNEL_EDGES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("reach", [6.0, None], ids=["past-the-edges", "radial-init"])
+def test_gather_kernels_match_plain_on_card(shape, dtype, reach, cuda_device):
+    """Gather's kernels against their plain versions on the card, at offsets
+    past every edge of the map and at the radial init's integer offsets:
+    the output and the locations' and weights' gradients within 1e-5 of
+    scale in f32 (sums in another order) and within 4 bf16 roundings
+    (2^-6) of scale in bf16 (each of the 4 corner sums an output takes
+    rounds once to bf16 after an f32 sum in another order); sx, sy and gs
+    bitwise; two launches of each bitwise equal, each counted
+    (``chip_smoke.gather_kernel_case`` raises past any of these)."""
+    gather_kernel_case("test", shape, dtype, np.random.default_rng(7), reach=reach)
+
+
+@pytest.mark.parametrize("name,shape", [("recipe", RECIPE_GATHER_ATTENTION), ("aio", AIO_LIKE_ATTENTION)])
+def test_gather_path_matches_cpu_in_f32_on_card(name, shape, cuda_device):
+    """Gather attention through its entry points in f32, the kernels and
+    B3 on the card against the plain path on the CPU: the output and all
+    three gradients within 1e-5 of scale."""
+    before = (msda_gather_fwd.launches, msda_gather_bwd.launches)
+    gather_card_vs_cpu(name, shape, np.random.default_rng(8))  # raises past its bound
+    assert (msda_gather_fwd.launches, msda_gather_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
 @pytest.mark.parametrize("kw", [dict(attn_mode="gather"), dict(world_feat_arch="aio")], ids=["gather", "aio"])
 def test_gather_and_aio_models_launch_b3_per_layer_on_card(kw, cuda_device):
-    """A request launches no kernel; a bf16 train step B3 4 times (the camera
-    warp and each encoder layer's value gradient) and neither B1 nor B2;
-    two steps from the same state and generator repeat bitwise."""
+    """A request launches gather's forward kernel once an encoder layer (3)
+    and none of B1, B2, B3; a bf16 train step both gather kernels 3 times
+    and B3 4 times (the camera warp and each encoder layer's value
+    gradient), neither B1 nor B2; two steps from the same state and
+    generator repeat bitwise."""
     rig = make_synthetic_rig(**RIG)
     batch = synthetic_train_batch(rig, 2, world_reduce=2, img_reduce=12, seed=0)
     runs = []
@@ -306,16 +338,17 @@ def test_gather_and_aio_models_launch_b3_per_layer_on_card(kw, cuda_device):
         model = MVDeTr.from_rig(rig, world_reduce=2, img_reduce=12, compute_dtype=torch.bfloat16, device="cuda",
                                 seed=0, **kw)
         assert model.world_feat.mode == "gather"
-        counts = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
+        counters = (msda_windowed_fwd, msda_windowed_bwd, warp_bwd, msda_gather_fwd, msda_gather_bwd)
+        counts = tuple(fn.launches for fn in counters)
         aux, _, _ = eval_step(model, batch, world_reduce=2, num_candidates=64)
         assert "offset_clip_fraction" not in aux
-        after = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
-        assert after == counts
+        after = tuple(fn.launches for fn in counters)
+        assert tuple(a - b for a, b in zip(after, counts)) == (0, 0, 0, 3, 0)
         state = create_train_state(model, lr=5e-4, total_steps=10)
         state, aux = train_step(state, batch, torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
-        final = (msda_windowed_fwd.launches, msda_windowed_bwd.launches, warp_bwd.launches)
-        assert tuple(a - b for a, b in zip(final, after)) == (0, 0, 4)
+        final = tuple(fn.launches for fn in counters)
+        assert tuple(a - b for a, b in zip(final, after)) == (0, 0, 4, 3, 3)
         assert np.isfinite(float(aux["loss"]))
         runs.append((float(aux["loss"]), {n: p.detach().clone() for n, p in model.named_parameters()}))
     assert runs[0][0] == runs[1][0]

@@ -96,13 +96,14 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
 
 def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp_path):
     """No nvcc, or an nvcc that fails: building (and so the first launch of
-    each of B1, B2, B3, B5 and the BatchNorm kernels) raises; nothing
-    substitutes the plain version."""
-    from mvdetr_tpu_torch.ops import batch_norm, kernel_build, lane_broadcast, msda_windowed, warp
+    each of B1, B2, B3, B5, the BatchNorm kernels and gather mode's kernels)
+    raises; nothing substitutes the plain version."""
+    from mvdetr_tpu_torch.ops import batch_norm, kernel_build, lane_broadcast, msda, msda_windowed, warp
 
     loaders = {msda_windowed.KERNEL_NAME: msda_windowed.load_library,
                msda_windowed.BWD_KERNEL_NAME: msda_windowed.load_bwd_library, warp.KERNEL_NAME: warp.load_library,
-               lane_broadcast.KERNEL_NAME: lane_broadcast.load_library, batch_norm.KERNEL_NAME: batch_norm.load_library}
+               lane_broadcast.KERNEL_NAME: lane_broadcast.load_library, batch_norm.KERNEL_NAME: batch_norm.load_library,
+               msda.KERNEL_NAME: msda.load_library}
     monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(kernel_build, "DEFAULT_CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_HOME", raising=False)
@@ -127,14 +128,58 @@ def test_kernel_build_raises_without_nvcc_and_on_a_failed_build(monkeypatch, tmp
             load.cache_clear()
 
 
-@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd", "lane_broadcast", "batch_norm"])
+@pytest.mark.parametrize("name", ["msda_windowed_fwd", "msda_windowed_bwd", "warp_bwd", "lane_broadcast", "batch_norm",
+                                  "msda_gather"])
 def test_backward_kernels_use_no_atomics(name):
-    """B1, the backward kernels, B5 and the BatchNorm kernels sum each
-    output in one fixed order, so two launches, and two train steps, repeat
-    bitwise: outside comments, their sources name no atomic operation
-    (CUDA's atomic*() or PTX atom/red)."""
+    """B1, the backward kernels, B5, the BatchNorm kernels and gather mode's
+    kernels sum each output in one fixed order, so two launches, and two
+    train steps, repeat bitwise: outside comments, their sources name no
+    atomic operation (CUDA's atomic*() or PTX atom/red)."""
     code = re.sub(r"//[^\n]*", "", (PACKAGE / "csrc" / f"{name}.cu").read_text())
     assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", code)
+
+
+def _gather_case(case):
+    """Inputs of gather mode's kernel wrappers on the CPU (B=1, L=2 maps of
+    3x4, M=2, D=8, P=4, bf16), with the one fault ``case`` names."""
+    rng = np.random.default_rng(0)
+    d = 12 if case == "head_not_multiple_of_8" else 8
+    value = torch.from_numpy(rng.standard_normal((1, 24, 2, d), dtype=np.float32)).bfloat16()
+    loc = torch.from_numpy(rng.uniform(0, 1, (1, 5, 2, 2, 4, 2)).astype(np.float32))
+    wgt = torch.full((1, 5, 2, 2, 4), 0.125, dtype=torch.bfloat16)
+    g = torch.ones((1, 5, 2 * d), dtype=torch.bfloat16)
+    if case == "weights_dtype":
+        wgt = wgt.float()
+    elif case == "cotangent_dtype":
+        g = g.float()
+    elif case == "locations_f64":
+        loc = loc.double()
+    elif case == "locations_not_contiguous":
+        loc = loc.transpose(1, 2).contiguous().transpose(1, 2)
+    return value, loc, wgt, g
+
+
+@pytest.mark.parametrize("case,match", [
+    ("head_not_multiple_of_8", "multiple of 8"), ("weights_dtype", "do not fit"), ("cotangent_dtype", "msda_gather_bwd: g"),
+    ("locations_f64", "f32 locations"), ("locations_not_contiguous", "locations must be contiguous"),
+    ("cpu_tensors", "CUDA device only"),
+])
+def test_gather_kernel_wrappers_refuse_what_the_kernels_do_not_take(case, match):
+    """``msda_gather_fwd`` and ``msda_gather_bwd`` raise before any build or
+    launch on an input the kernels do not take: D not a multiple of 8,
+    weights or a cotangent in another dtype than the value, locations not
+    f32 or not contiguous; and on tensors off the card, so a CPU tensor
+    never reaches them; no launch is counted."""
+    from mvdetr_tpu_torch.ops import msda
+
+    value, loc, wgt, g = _gather_case(case)
+    before = (msda.msda_gather_fwd.launches, msda.msda_gather_bwd.launches)
+    if case != "cotangent_dtype":
+        with pytest.raises(ValueError, match=match):
+            msda.msda_gather_fwd(value, loc, wgt, 3, 4)
+    with pytest.raises(ValueError, match=match):
+        msda.msda_gather_bwd(value, loc, wgt, g, 3, 4)
+    assert (msda.msda_gather_fwd.launches, msda.msda_gather_bwd.launches) == before
 
 
 def _all_imports(path: Path):
